@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    PYTHONPATH=src python3 chip_smoke.py [--n 50000] [--nq 1000]
+    PYTHONPATH=src python3 chip_smoke.py [--n 50000]
 
 Phases, each printing one JSON line; any failure ends in a non-zero exit:
 
 1. device   -- nvidia-smi name and power limit, torch/CUDA versions, TF32.
-2. build    -- nvcc build of ``src/repro_torch/kernels/csrc/`` (one nvcc
-               per source, started together).
+2. build    -- nvcc build of ``src/repro_torch/kernels/csrc/distance.cu``.
 3. kernels  -- each CUDA kernel against its plain PyTorch version on the
                card: exact on integer data, rtol 1e-5 / atol 1e-4 on
-               gaussian data, bit-exact cache pass-through; kernel, plain
-               and library times at the main path's shapes with the bound.
+               gaussian data, bit-exact cache pass-through, at every shape
+               the main path launches each kernel with; kernel, plain and
+               library times at the main path's shapes with the bound.
 4. exact    -- an integer-coordinate corpus (n=2000, d=128, coordinates in
                [-4, 4]) built with 4 configs on the card and on the CPU:
                identical graphs and counters; multi == single on the card.
@@ -59,6 +59,7 @@ EF_GRID = [10, 20, 40, 80]
 # 1.0) keep each cluster near the pool size L.
 N_CLUSTERS = 1024
 SPREAD = 1.0
+NQ = 1000                      # queries of the main path
 
 
 def emit(phase: str, **kw) -> None:
@@ -101,13 +102,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
-    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
-        list(pool.map(_build.load, names))
-    emit("build", sources=names, seconds=time.perf_counter() - t0,
+    _build.load("distance")
+    emit("build", source="distance.cu", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.BUILD_SECONDS, flags=_build.NVCC_FLAGS)
 
 
@@ -135,7 +133,7 @@ def _compare(name, got, want, integer: bool) -> float:
     return err
 
 
-def phase_kernels(n_corpus: int, nq: int) -> list[dict]:
+def phase_kernels(n_corpus: int) -> list[dict]:
     import torch
     from repro_torch.core import metric as mlib
     from repro_torch.kernels import gather_distance as gd
@@ -147,7 +145,7 @@ def phase_kernels(n_corpus: int, nq: int) -> list[dict]:
     # ---- pairwise distance -------------------------------------------------
     perr = 0.0
     # ragged, the main path's ground truth, and ground truth at n=100k
-    shapes = [(37, 91, 50), (nq, n_corpus, 128), (1000, 100_000, 128)]
+    shapes = [(37, 91, 50), (NQ, n_corpus, 128), (1000, 100_000, 128)]
     for (a, b_, d) in dict.fromkeys(shapes):
         for integer in (False, True):
             q = _data(gen, (a, d), integer)
@@ -164,26 +162,31 @@ def phase_kernels(n_corpus: int, nq: int) -> list[dict]:
                                exact)
                 if not integer:
                     perr = max(perr, err)
-    q = _data(gen, (nq, 128), False)
+    q = _data(gen, (NQ, 128), False)
     x = _data(gen, (n_corpus, 128), False)
     k_ms = time_ms(lambda: l2.pairwise_distance(q, x, kernel="l2"))
     p_ms = time_ms(lambda: l2.pairwise_distance_plain(q, x, "l2"))
     lib_ms = time_ms(lambda: torch.cdist(
         q, x, compute_mode="use_mm_for_euclid_dist"))
-    nbytes = 4.0 * (nq * 128 + n_corpus * 128 + nq * n_corpus)
-    bms, by = bound_ms(nbytes, 2.0 * nq * n_corpus * 128)
+    nbytes = 4.0 * (NQ * 128 + n_corpus * 128 + NQ * n_corpus)
+    bms, by = bound_ms(nbytes, 2.0 * NQ * n_corpus * 128)
     out.append(dict(name="pairwise_distance", route="cuda",
                     source="src/repro_torch/kernels/csrc/distance.cu",
                     replaces="src/repro/kernels/l2_distance.py:56",
                     launches=0, max_abs_err=perr, ms=k_ms, plain_ms=p_ms,
                     bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                    shape=[nq, n_corpus, 128], kernel_form="l2",
+                    shape=[NQ, n_corpus, 128], kernel_form="l2",
                     library="torch.cdist (Euclidean, the square root of "
                             "the l2 form)"))
 
     # ---- gather distance (slab and ids forms) ------------------------------
     gerr = 0.0
-    for (b, k, d) in [(256, 128, 128), (9, 21, 33)]:
+    # the main path's shapes: a grouped-build hop (k = m*Mx = 4*32), a
+    # single-build hop, the grouped build's entry distances (k = m), an
+    # evaluation hop, the graph's edge lengths (with_distances); and a
+    # ragged shape off the float4 path
+    for (b, k, d) in [(256, 128, 128), (256, 32, 128), (256, 4, 128),
+                      (NQ, 32, 128), (n_corpus, 32, 128), (9, 21, 33)]:
         for integer in (False, True):
             u = _data(gen, (b, d), integer)
             data = _data(gen, (n_corpus, d), integer)
@@ -284,14 +287,14 @@ def phase_exact() -> None:
          cpu_build_s=t_cpu)
 
 
-def phase_main(n: int, nq: int, counters: dict) -> dict:
+def phase_main(n: int, counters: dict) -> dict:
     import torch
     from repro_torch.core import eval as evallib
     from repro_torch.core import search
     from repro_torch.core.tuner import estimator
     from repro_torch.kernels import ref
     t0 = time.perf_counter()
-    data, queries = estimator.make_dataset(n, 128, nq, seed=0,
+    data, queries = estimator.make_dataset(n, 128, NQ, seed=0,
                                            n_clusters=N_CLUSTERS,
                                            spread=SPREAD)
     t_data = time.perf_counter() - t0
@@ -319,7 +322,7 @@ def phase_main(n: int, nq: int, counters: dict) -> dict:
     want = torch.sort(ref.pairwise_distance_ref(queries[:sub], data), dim=-1,
                       stable=True).indices[:, :10].to(torch.int32)
     gt_recall = evallib.recall_at_k(gt[:sub], want)
-    gt_ok = bool(gt.shape == (nq, 10) and (gt >= 0).all() and (gt < n).all())
+    gt_ok = bool(gt.shape == (NQ, 10) and (gt >= 0).all() and (gt < n).all())
 
     def summary(rec):
         return dict(build_s=rec.build_seconds, eval_s=rec.eval_seconds,
@@ -331,7 +334,7 @@ def phase_main(n: int, nq: int, counters: dict) -> dict:
     c = grouped.counters
     # the best config's recall@10 over its ef sweep
     best = max(p.recall for e in grouped.estimates for p in e.points)
-    emit("main", n=n, d=128, nq=nq, k=10, data_s=t_data,
+    emit("main", n=n, d=128, nq=NQ, k=10, data_s=t_data,
          ground_truth_s=t_gt, grouped=g, baseline=bsum,
          eso_epo_saving=1.0 - c.total / c.total_base,
          build_speedup=base.build_seconds / grouped.build_seconds,
@@ -395,7 +398,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=50_000,
                     help="corpus size of the main path (default 50k)")
-    ap.add_argument("--nq", type=int, default=1_000)
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="only profile one grouped build of N points")
     args = ap.parse_args()
@@ -415,9 +417,9 @@ def main() -> int:
     if args.profile:
         phase_profile(args.profile)
         return 0
-    kernels = phase_kernels(args.n, args.nq)
+    kernels = phase_kernels(args.n)
     phase_exact()
-    launches = phase_main(args.n, args.nq, counters)
+    launches = phase_main(args.n, counters)
     for row in kernels:
         row["launches"] = launches[row["name"]]
     emit("done", seconds=time.perf_counter() - t0)
