@@ -5,24 +5,43 @@
 
 Phases, each printing one JSON line; any failure ends in a non-zero exit:
 
-1. device   -- nvidia-smi name and power limit, torch/CUDA versions, TF32.
-2. build    -- nvcc build of ``src/repro_torch/kernels/csrc/distance.cu``.
-3. kernels  -- each CUDA kernel against its plain PyTorch version on the
-               card: exact on integer data, rtol 1e-5 / atol 1e-4 on
-               gaussian data, bit-exact cache pass-through, at every shape
-               the main path launches each kernel with; kernel, plain and
-               library times at the main path's shapes with the bound.
-4. exact    -- an integer-coordinate corpus (n=2000, d=128, coordinates in
-               [-4, 4]) built with 4 configs on the card and on the CPU:
-               identical graphs and counters; multi == single on the card.
-5. main     -- FastPGT's estimation path at SIFT's width d=128: clustered
-               data (n=50k by default; the paper's corpora hold 1M vectors;
-               at n=100k the whole run took 672 s on an H100, over half the
-               run's 1200 s limit), exact ground truth, then
-               grouped (group_size=4, ESO+EPO) and baseline (group_size=1)
-               Vamana estimation of 4 configs over ef in {10, 20, 40, 80}.
-               Launch counters are zeroed just before and read just after;
-               both kernels must have launched.
+1. device     -- nvidia-smi name and power limit, torch/CUDA versions, TF32.
+2. build      -- nvcc build of ``src/repro_torch/kernels/csrc/distance.cu``.
+3. kernels    -- each CUDA kernel (fp32 and int8 gather, fp32 and int8
+                 pairwise) against its plain PyTorch version on the card:
+                 exact on integer data (for the int8 kernels: integer keys
+                 whose every dimension reaches 127, so the SQ scale is 1),
+                 rtol 1e-5 / atol 1e-4 on gaussian data, bit-exact cache
+                 pass-through, at every shape the two paths launch each
+                 kernel with; kernel, plain and library times (median of 5
+                 timed batches, with their spread) beside the bound.
+4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
+                 in [-4, 4]) built with 4 configs on the card and on the
+                 CPU: identical graphs and counters; multi == single.
+5. main       -- FastPGT's estimation path at SIFT's width d=128: clustered
+                 data (n=50k by default; the paper's corpora hold 1M
+                 vectors), exact ground truth, then grouped (group_size=4,
+                 ESO+EPO) and baseline (group_size=1) Vamana estimation of
+                 4 configs over ef in {10, 20, 40, 80}.
+6. serve_exact -- the serving path on a scale-1 integer corpus (n=2000,
+                 d=128): index built on the card and on the CPU, then
+                 ``retrieval_attention_batched`` with hash visit state and
+                 W=4, fp32 and sq8: identical graphs, pools and counters,
+                 attention to 1e-5.
+7. serve      -- retrieval attention over one head of a 128K-token context
+                 at head width 128 (Llama-3-8B's, served through
+                 RetrievalAttention): a Vamana index (L=128, M=32) with its
+                 int8 view, 1000 decode queries at ef in {32, 64, 128},
+                 fp32 and sq8, against exact ip top-32 and exact
+                 attention; once under the index's default ip metric and
+                 once under cosine.  Asserted: sq8 recall >= fp32 - 0.02
+                 at every ef, finite outputs, both gather kernels launched.
+                 Reported, not asserted: the attention gate (mean cosine
+                 >= 0.9 at ef=128), which neither metric's index meets on
+                 this geometry (PERF.md, ROADMAP queue 3).
+
+Launch counters are zeroed just before each path (main, serve) and read
+just after; every kernel of that path must have launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
@@ -60,6 +79,14 @@ EF_GRID = [10, 20, 40, 80]
 N_CLUSTERS = 1024
 SPREAD = 1.0
 NQ = 1000                      # queries of the main path
+# The serving cell: one attention head of a 128K-token context at head
+# width 128 (Llama-3-8B), keys from the main path's geometry, the index's
+# default ip metric, the reference's serving knobs (hash state, W=4).
+N_CTX = 131072
+SERVE_PARAMS = dict(L=128, M=32, alpha=1.0)
+SERVE_EFS = [32, 64, 128]
+TOP_K = 32
+BLOCK = 64                     # retrieval_attention_batched block size
 
 
 def emit(phase: str, **kw) -> None:
@@ -72,18 +99,36 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, reps: int = 20) -> float:
+def time_ms(fn, reps: int = 20, runs: int = 5) -> tuple[float, list]:
+    """Median ms per call over ``runs`` timed batches of ``reps`` calls
+    (CUDA events), and the [min, max] of the batches."""
     import torch
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    per = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / reps)
+    per.sort()
+    return per[len(per) // 2], [per[0], per[-1]]
+
+
+def timed_row(kernel_fn, plain_fn, library_fn=None, reps: int = 20) -> dict:
+    """Kernel, plain and library times, interleaved in one call."""
+    ms, spread = time_ms(kernel_fn, reps)
+    p_ms, p_spread = time_ms(plain_fn, reps)
+    row = dict(ms=ms, ms_spread=spread, plain_ms=p_ms,
+               plain_ms_spread=p_spread, library_ms=None)
+    if library_fn is not None:
+        row["library_ms"], row["library_ms_spread"] = time_ms(library_fn,
+                                                              reps)
+    return row
 
 
 def phase_device() -> str:
@@ -133,19 +178,182 @@ def _compare(name, got, want, integer: bool) -> float:
     return err
 
 
-def phase_kernels(n_corpus: int) -> list[dict]:
+def _int8_corpus(gen, n: int, d: int, integer: bool):
+    """The SQ8 view of an (n, d) corpus drawn from ``gen``.  Integer: keys
+    in [-127, 127] with every dimension reaching 127, so the scale is 1
+    and every ADC distance of integer queries is an exact integer."""
     import torch
     from repro_torch.core import metric as mlib
-    from repro_torch.kernels import gather_distance as gd
-    from repro_torch.kernels import l2_distance as l2
-    from repro_torch.kernels import ops
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    out = []
+    if integer:
+        x = torch.randint(-127, 128, (n, d), generator=gen, device="cuda",
+                          dtype=torch.int32).float()
+        x[torch.arange(d, device="cuda") % n,
+          torch.arange(d, device="cuda")] = 127.0
+    else:
+        x = torch.randn((n, d), generator=gen, device="cuda")
+    quant = mlib.quantize_sq8(x)
+    if integer and not torch.equal(quant.scale, torch.ones_like(quant.scale)):
+        raise AssertionError("integer int8 corpus: scale != 1")
+    return quant
 
-    # ---- pairwise distance -------------------------------------------------
+
+def _int8_queries(gen, shape, integer: bool):
+    import torch
+    u = torch.randn(shape, generator=gen, device="cuda")
+    return torch.round(u * 8) if integer else u
+
+
+def _lanes(gen, b: int, k: int, n: int):
+    """ids (INVALID every 7th lane), a 70% mask and a cache with +inf."""
+    import torch
+    ids = torch.randint(0, n, (b, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ids[:, ::7] = -1
+    mask = torch.rand((b, k), generator=gen, device="cuda") < 0.7
+    cached = torch.randn((b, k), generator=gen, device="cuda")
+    cached[:, ::5] = float("inf")
+    return ids, mask, cached
+
+
+def _pass_through(name, got, cached, keep) -> None:
+    import torch
+    if not torch.equal(got[keep], cached[keep]):
+        raise AssertionError(f"{name}: cache pass-through not bit-exact")
+
+
+def _gather_row(gd, gen, n_corpus: int) -> dict:
+    """fp32 gather, slab and ids forms, at every shape of both paths."""
+    import torch
+    gerr = 0.0
+    # main path: a grouped-build hop (k = m*Mx = 4*32), a single-build
+    # hop, the grouped build's entry distances (k = m), an evaluation hop,
+    # the graph's edge lengths (with_distances); serve path: the fp32
+    # search's W=4 hop and the re-rank at ef=128 (64, 128), the re-rank at
+    # ef 32 and 64, the entry distance (64, 1), the serving build's entry
+    # distances (256, 1) and its edge lengths (N_CTX, 32); and a ragged
+    # shape off the float4 path
+    shapes = [(256, 128, 128), (256, 32, 128), (256, 4, 128), (NQ, 32, 128),
+              (n_corpus, 32, 128), (BLOCK, 128, 128), (BLOCK, 64, 128),
+              (BLOCK, 32, 128), (BLOCK, 1, 128), (256, 1, 128),
+              (N_CTX, 32, 128), (9, 21, 33)]
+    for (b, k, d) in dict.fromkeys(shapes):
+        n = max(n_corpus, N_CTX) if d == 128 else 500
+        for integer in (False, True):
+            u = _data(gen, (b, d), integer)
+            data = _data(gen, (n, d), integer)
+            ids, mask, cached = _lanes(gen, b, k, n)
+            c = data[ids.clamp_min(0).long()].contiguous()
+            for kern in ("l2", "ip"):
+                got = gd.gather_distance(u, c, cached, mask, kernel=kern)
+                want = gd.gather_distance_plain(u, c, cached, mask, kern)
+                e1 = _compare(f"gather slab {kern} {(b, k, d)}", got, want,
+                              integer)
+                _pass_through("gather slab", got, cached, ~mask)
+                got = gd.gather_distance_ids(u, data, ids, cached, mask,
+                                             kernel=kern)
+                want = gd.gather_distance_ids_plain(u, data, ids, cached,
+                                                    mask, kern)
+                e2 = _compare(f"gather ids {kern} {(b, k, d)}", got, want,
+                              integer)
+                _pass_through("gather ids", got, cached, ~mask | (ids < 0))
+                if not integer:
+                    gerr = max(gerr, e1, e2)
+            del c
+    # timed at the build hop's shape: b=256, k=m*Mx=4*32, every lane computed
+    b, k, d = 256, 128, 128
+    u = _data(gen, (b, d), False)
+    data = _data(gen, (n_corpus, d), False)
+    ids = torch.randint(0, n_corpus, (b, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    mask = torch.ones((b, k), dtype=torch.bool, device="cuda")
+    cached = torch.zeros((b, k), device="cuda")
+    times = timed_row(
+        lambda: gd.gather_distance_ids(u, data, ids, cached, mask,
+                                       kernel="l2"),
+        lambda: gd.gather_distance_ids_plain(u, data, ids, cached, mask,
+                                             "l2"), reps=100)
+    lanes = int(mask.sum())
+    nbytes = 4.0 * (b * d + lanes * d + 3 * b * k) + b * k
+    bms, by = bound_ms(nbytes, 3.0 * lanes * d)
+    return dict(name="gather_distance", route="cuda",
+                source="src/repro_torch/kernels/csrc/distance.cu",
+                replaces="src/repro/kernels/gather_distance.py:66",
+                launches=0, max_abs_err=gerr, **times, bound_ms=bms,
+                bound_by=by, shape=[b, k, d], form="ids",
+                shapes_checked=[list(x) for x in dict.fromkeys(shapes)],
+                library="none: no single PyTorch call gathers and measures "
+                        "with a cache mask")
+
+
+def _gather_sq8_row(gd, ops, ref, gen) -> dict:
+    """int8 gather, slab and ids forms, at the serve path's shapes."""
+    import torch
+    err = 0.0
+    # the sq8 search's W=4 hop (k = W*Mx = 4*32), its entry distance, and
+    # a ragged shape off the char4 path
+    shapes = [(BLOCK, 128, 128), (BLOCK, 1, 128), (9, 21, 33)]
+    for (b, k, d) in shapes:
+        n = N_CTX if d == 128 else 500
+        for integer in (False, True):
+            quant = _int8_corpus(gen, n, d, integer)
+            u = _int8_queries(gen, (b, d), integer)
+            ids, mask, cached = _lanes(gen, b, k, n)
+            safe = ids.clamp_min(0).long()
+            codes = quant.codes[safe].contiguous()
+            cn = quant.norms[safe].contiguous()
+            for kern in ("l2", "ip"):
+                got = ops.gather_distance_q(u, codes, quant.scale, cn,
+                                            cached, mask, kern)
+                want = ref.gather_distance_sq8_ref(u, codes, quant.scale, cn,
+                                                   cached, mask, kern)
+                e1 = _compare(f"gather sq8 slab {kern} {(b, k, d)}", got,
+                              want, integer)
+                _pass_through("gather sq8 slab", got, cached, ~mask)
+                got = ops.gather_distance_q_ids(u, quant, ids, cached, mask,
+                                                kern)
+                want = ref.gather_distance_sq8_ref(
+                    u, codes, quant.scale, cn, cached, mask & (ids >= 0),
+                    kern)
+                e2 = _compare(f"gather sq8 ids {kern} {(b, k, d)}", got,
+                              want, integer)
+                _pass_through("gather sq8 ids", got, cached,
+                              ~mask | (ids < 0))
+                if not integer:
+                    err = max(err, e1, e2)
+    # timed at the sq8 search's hop shape, every lane computed
+    b, k, d = BLOCK, 128, 128
+    quant = _int8_corpus(gen, N_CTX, d, False)
+    qs, qn = ops.prescale(_int8_queries(gen, (b, d), False), quant.scale,
+                          "l2")
+    ids = torch.randint(0, N_CTX, (b, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    mask = torch.ones((b, k), dtype=torch.bool, device="cuda")
+    cached = torch.zeros((b, k), device="cuda")
+    times = timed_row(
+        lambda: gd.gather_distance_sq8_ids(qs, qn, quant.codes, quant.norms,
+                                           ids, cached, mask, kernel="l2"),
+        lambda: gd.gather_distance_sq8_ids_plain(
+            qs, qn, quant.codes, quant.norms, ids, cached, mask, "l2"),
+        reps=100)
+    lanes = int(mask.sum())
+    # qs and qn, each lane's code row and norm, ids/cached/mask/out
+    nbytes = 4.0 * (b * d + b) + lanes * (d + 4) + b * k * (4 + 4 + 1 + 4)
+    bms, by = bound_ms(nbytes, 2.0 * lanes * d)
+    return dict(name="gather_distance_sq8", route="cuda",
+                source="src/repro_torch/kernels/csrc/distance.cu",
+                replaces="src/repro/kernels/gather_distance.py:124",
+                launches=0, max_abs_err=err, **times, bound_ms=bms,
+                bound_by=by, shape=[b, k, d], form="ids",
+                shapes_checked=[list(x) for x in shapes],
+                library="none: no single PyTorch call gathers int8 rows "
+                        "and measures with a cache mask")
+
+
+def _pairwise_row(l2, ops, mlib, gen, n_corpus: int) -> dict:
+    import torch
     perr = 0.0
-    # ragged, the main path's ground truth, and ground truth at n=100k
-    shapes = [(37, 91, 50), (NQ, n_corpus, 128), (1000, 100_000, 128)]
+    # ragged, the main path's ground truth, the serving ground truth (ip)
+    shapes = [(37, 91, 50), (NQ, n_corpus, 128), (NQ, N_CTX, 128)]
     for (a, b_, d) in dict.fromkeys(shapes):
         for integer in (False, True):
             q = _data(gen, (a, d), integer)
@@ -162,85 +370,79 @@ def phase_kernels(n_corpus: int) -> list[dict]:
                                exact)
                 if not integer:
                     perr = max(perr, err)
+                del got, want
     q = _data(gen, (NQ, 128), False)
     x = _data(gen, (n_corpus, 128), False)
-    k_ms = time_ms(lambda: l2.pairwise_distance(q, x, kernel="l2"))
-    p_ms = time_ms(lambda: l2.pairwise_distance_plain(q, x, "l2"))
-    lib_ms = time_ms(lambda: torch.cdist(
-        q, x, compute_mode="use_mm_for_euclid_dist"))
+    times = timed_row(
+        lambda: l2.pairwise_distance(q, x, kernel="l2"),
+        lambda: l2.pairwise_distance_plain(q, x, "l2"),
+        lambda: torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist"))
     nbytes = 4.0 * (NQ * 128 + n_corpus * 128 + NQ * n_corpus)
     bms, by = bound_ms(nbytes, 2.0 * NQ * n_corpus * 128)
-    out.append(dict(name="pairwise_distance", route="cuda",
-                    source="src/repro_torch/kernels/csrc/distance.cu",
-                    replaces="src/repro/kernels/l2_distance.py:56",
-                    launches=0, max_abs_err=perr, ms=k_ms, plain_ms=p_ms,
-                    bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                    shape=[NQ, n_corpus, 128], kernel_form="l2",
-                    library="torch.cdist (Euclidean, the square root of "
-                            "the l2 form)"))
+    return dict(name="pairwise_distance", route="cuda",
+                source="src/repro_torch/kernels/csrc/distance.cu",
+                replaces="src/repro/kernels/l2_distance.py:56",
+                launches=0, max_abs_err=perr, **times, bound_ms=bms,
+                bound_by=by, shape=[NQ, n_corpus, 128], kernel_form="l2",
+                shapes_checked=[list(x) for x in dict.fromkeys(shapes)],
+                library="torch.cdist (Euclidean, the square root of the l2 "
+                        "form)")
 
-    # ---- gather distance (slab and ids forms) ------------------------------
-    gerr = 0.0
-    # the main path's shapes: a grouped-build hop (k = m*Mx = 4*32), a
-    # single-build hop, the grouped build's entry distances (k = m), an
-    # evaluation hop, the graph's edge lengths (with_distances); and a
-    # ragged shape off the float4 path
-    for (b, k, d) in [(256, 128, 128), (256, 32, 128), (256, 4, 128),
-                      (NQ, 32, 128), (n_corpus, 32, 128), (9, 21, 33)]:
+
+def _pairwise_sq8_row(l2, ops, ref, mlib, gen) -> dict:
+    import torch
+    err = 0.0
+    # ragged, and the serving ground truth's shape over the int8 view
+    shapes = [(37, 91, 50), (NQ, N_CTX, 128)]
+    for (a, n, d) in shapes:
         for integer in (False, True):
-            u = _data(gen, (b, d), integer)
-            data = _data(gen, (n_corpus, d), integer)
-            ids = torch.randint(0, n_corpus, (b, k), generator=gen,
-                                device="cuda", dtype=torch.int32)
-            ids[:, ::7] = -1                          # INVALID lanes
-            mask = torch.rand((b, k), generator=gen, device="cuda") < 0.7
-            cached = torch.randn((b, k), generator=gen, device="cuda")
-            cached[:, ::5] = float("inf")
-            c = data[ids.clamp_min(0).long()].contiguous()
-            for kern in ("l2", "ip"):
-                got = gd.gather_distance(u, c, cached, mask, kernel=kern)
-                want = gd.gather_distance_plain(u, c, cached, mask, kern)
-                e1 = _compare(f"gather slab {kern} {(b, k, d)}", got, want,
-                              integer)
-                keep = ~mask
-                if not torch.equal(got[keep], cached[keep]):
-                    raise AssertionError("gather slab: cache pass-through "
-                                         "not bit-exact")
-                got = gd.gather_distance_ids(u, data, ids, cached, mask,
-                                             kernel=kern)
-                want = gd.gather_distance_ids_plain(u, data, ids, cached,
-                                                    mask, kern)
-                e2 = _compare(f"gather ids {kern} {(b, k, d)}", got, want,
-                              integer)
-                keep = ~mask | (ids < 0)
-                if not torch.equal(got[keep], cached[keep]):
-                    raise AssertionError("gather ids: cache pass-through "
-                                         "not bit-exact")
+            quant = _int8_corpus(gen, n, d, integer)
+            q = _int8_queries(gen, (a, d), integer)
+            for metric in ("l2", "ip", "cosine"):
+                exact = integer and metric != "cosine"
+                got = ops.pairwise_distance_q(q, quant, metric)
+                met = mlib.resolve(metric)
+                want = ref.pairwise_distance_sq8_ref(
+                    met.prepare(q), quant.codes, quant.scale, quant.norms,
+                    met.kernel)
+                e = _compare(f"pairwise sq8 {metric} {(a, n, d)}", got, want,
+                             exact)
                 if not integer:
-                    gerr = max(gerr, e1, e2)
-    # timed at the build hop's shape: b=256, k=m*Mx=4*32, every lane computed
-    b, k, d = 256, 128, 128
-    u = _data(gen, (b, d), False)
-    data = _data(gen, (n_corpus, d), False)
-    ids = torch.randint(0, n_corpus, (b, k), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    mask = torch.ones((b, k), dtype=torch.bool, device="cuda")
-    cached = torch.zeros((b, k), device="cuda")
-    k_ms = time_ms(lambda: gd.gather_distance_ids(u, data, ids, cached, mask,
-                                                  kernel="l2"), reps=100)
-    p_ms = time_ms(lambda: gd.gather_distance_ids_plain(u, data, ids, cached,
-                                                        mask, "l2"), reps=100)
-    lanes = int(mask.sum())
-    nbytes = 4.0 * (b * d + lanes * d + 3 * b * k) + b * k
-    bms, by = bound_ms(nbytes, 3.0 * lanes * d)
-    out.append(dict(name="gather_distance", route="cuda",
-                    source="src/repro_torch/kernels/csrc/distance.cu",
-                    replaces="src/repro/kernels/gather_distance.py:66",
-                    launches=0, max_abs_err=gerr, ms=k_ms, plain_ms=p_ms,
-                    bound_ms=bms, bound_by=by, library_ms=None,
-                    shape=[b, k, d], form="ids",
-                    library="none: no single PyTorch call gathers and "
-                            "measures with a cache mask"))
+                    err = max(err, e)
+                del got, want
+    quant = _int8_corpus(gen, N_CTX, 128, False)
+    qs, qn = ops.prescale(_int8_queries(gen, (NQ, 128), False), quant.scale,
+                          "l2")
+    times = timed_row(
+        lambda: l2.pairwise_distance_sq8(qs, qn, quant.codes, quant.norms,
+                                         kernel="l2"),
+        lambda: l2.pairwise_distance_sq8_plain(qs, qn, quant.codes,
+                                               quant.norms, "l2"))
+    nbytes = 4.0 * (NQ * 128 + NQ + N_CTX + NQ * N_CTX) + N_CTX * 128
+    bms, by = bound_ms(nbytes, 2.0 * NQ * N_CTX * 128)
+    return dict(name="pairwise_distance_sq8", route="cuda",
+                source="src/repro_torch/kernels/csrc/distance.cu",
+                replaces="src/repro/kernels/l2_distance.py:118",
+                launches=0, max_abs_err=err, **times, bound_ms=bms,
+                bound_by=by, shape=[NQ, N_CTX, 128], kernel_form="l2",
+                shapes_checked=[list(x) for x in shapes],
+                library="none: torch.matmul of the upcast codes needs an "
+                        "upcast and an epilogue besides, not one call",
+                path="none: no path of either package calls it")
+
+
+def phase_kernels(n_corpus: int) -> list[dict]:
+    import torch
+    from repro_torch.core import metric as mlib
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import l2_distance as l2
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = [_pairwise_row(l2, ops, mlib, gen, n_corpus),
+           _gather_row(gd, gen, n_corpus),
+           _gather_sq8_row(gd, ops, ref, gen),
+           _pairwise_sq8_row(l2, ops, ref, mlib, gen)]
+    torch.cuda.empty_cache()
     for row in out:
         emit("kernel", **row)
     return out
@@ -287,6 +489,16 @@ def phase_exact() -> None:
          cpu_build_s=t_cpu)
 
 
+def zero_counts(counters: dict) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in
+            counters.items()}
+
+
 def phase_main(n: int, counters: dict) -> dict:
     import torch
     from repro_torch.core import eval as evallib
@@ -299,8 +511,7 @@ def phase_main(n: int, counters: dict) -> dict:
                                            spread=SPREAD)
     t_data = time.perf_counter() - t0
 
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    zero_counts(counters)
     search.HOST_SYNCS = 0
     t0 = time.perf_counter()
     gt = evallib.ground_truth(data, queries, 10)
@@ -314,7 +525,7 @@ def phase_main(n: int, counters: dict) -> dict:
                               group_size=1, build_batch_size=256,
                               ef_grid=EF_GRID)
     torch.cuda.synchronize()
-    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    launches = read_counts(counters)
     syncs = search.HOST_SYNCS
 
     # ground truth held against the plain version on a query subset
@@ -357,10 +568,175 @@ def phase_main(n: int, counters: dict) -> dict:
             raise AssertionError(f"grouped != baseline recall for {eg.cfg}")
     if not c.total < c.total_base:
         raise AssertionError(f"no ESO/EPO saving: {c.as_dict()}")
-    for name, cnt in launches.items():
-        if cnt <= 0:
+    for name in ("gather_distance", "pairwise_distance"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
+    return launches
+
+
+def _serve_int_data(n: int, nq: int, d: int = 128):
+    """Scale-1 integer keys (every dimension reaches 127), integer queries
+    and gaussian values, on the CPU."""
+    import torch
+    gen = torch.Generator().manual_seed(2)
+    keys = torch.randint(-127, 128, (n, d), generator=gen).float()
+    keys[torch.arange(d) % n, torch.arange(d)] = 127.0
+    q = torch.round(torch.randn((nq, d), generator=gen) * 8)
+    return keys, torch.randn((n, d), generator=gen), q
+
+
+def phase_serve_exact() -> None:
+    """Card == CPU on the serving path, fp32 and sq8, hash state, W=4."""
+    import torch
+    from repro_torch.core import vamana
+    from repro_torch.serve import retrieval
+    keys, values, q = _serve_int_data(2000, 200)
+    p = vamana.VamanaParams(**SERVE_PARAMS)
+    idx, build_s = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        idx[dev] = retrieval.build_index(keys, values, p, quantize="sq8",
+                                         device=dev)
+        build_s[dev] = time.perf_counter() - t0
+    gpu, cpu = idx["cuda"], idx["cpu"]
+    if not torch.equal(gpu.graph_ids.cpu(), cpu.graph_ids) or \
+            gpu.entry != cpu.entry:
+        raise AssertionError("serving index: card graph != CPU graph")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(gpu.quant, cpu.quant)):
+        raise AssertionError("serving index: card SQ8 view != CPU view")
+    if not torch.equal(gpu.quant.scale.cpu(), torch.ones(128)):
+        raise AssertionError("integer serving corpus: scale != 1")
+    rows = {}
+    for mode in ("none", "sq8"):
+        res = {dev: retrieval.retrieval_attention_batched(
+            idx[dev], q, top_k=TOP_K, ef=64, block_size=BLOCK,
+            visited_impl="hash", expand_width=4, quantize=mode)
+            for dev in idx}
+        (o_g, r_g), (o_c, r_c) = res["cuda"], res["cpu"]
+        same = dict(
+            pool_ids=torch.equal(r_g.pool_ids.cpu(), r_c.pool_ids),
+            pool_dist=torch.equal(r_g.pool_dist.cpu(), r_c.pool_dist),
+            n_fresh=int(r_g.n_fresh) == int(r_c.n_fresh),
+            n_computed=int(r_g.n_computed) == int(r_c.n_computed),
+            hops=r_g.hops == r_c.hops)
+        att_err = float((o_g.cpu() - o_c).abs().max())
+        rows[mode] = dict(identical=same, attention_max_abs_err=att_err,
+                          n_computed=int(r_g.n_computed), hops=r_g.hops)
+        if not all(same.values()) or att_err > 1e-5:
+            raise AssertionError(f"serve_exact {mode}: card != CPU {same}, "
+                                 f"attention err {att_err}")
+    emit("serve_exact", n=2000, d=128, nq=200, ef=64, top_k=TOP_K,
+         visited_impl="hash", expand_width=4, params=SERVE_PARAMS,
+         identical_graph=True, card_build_s=build_s["cuda"],
+         cpu_build_s=build_s["cpu"], modes=rows)
+
+
+def serve_data():
+    """The serving cell's keys, values and decode queries on the card, and
+    its yardsticks: exact ip top-32 (pairwise kernel + stable sort) and
+    exact attention.  Made before any counted window."""
+    import torch
+    from repro_torch.core import knng
+    from repro_torch.core.tuner import estimator
+    from repro_torch.serve import retrieval
+    t0 = time.perf_counter()
+    keys, queries = estimator.make_dataset(N_CTX, 128, NQ, seed=1,
+                                           n_clusters=N_CLUSTERS,
+                                           spread=SPREAD)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    values = torch.randn((N_CTX, 128), generator=gen, device="cuda")
+    gt, _ = knng.exact_knn(keys, queries, TOP_K, metric="ip")
+    exact = retrieval.exact_attention(keys, values, queries)
+    # the ceiling of top-32 retrieval: attention over the exact top-32
+    top = gt.long()
+    logits = torch.einsum("bd,bkd->bk", queries, keys[top]) / 128 ** 0.5
+    at_top = torch.einsum("bk,bkd->bd", torch.softmax(logits, -1),
+                          values[top])
+    ceiling = torch.nn.functional.cosine_similarity(at_top, exact, dim=-1)
+    torch.cuda.synchronize()
+    return dict(keys=keys, values=values, queries=queries, gt=gt,
+                exact=exact, exact_top_k_cosine=float(ceiling.mean()),
+                seconds=time.perf_counter() - t0)
+
+
+def phase_serve(counters: dict, data: dict, metric: str) -> dict:
+    """Retrieval attention at full width over a 131072 x 128 key cache:
+    build the ``metric`` index with its int8 view, then serve the decode
+    queries at every ef, fp32 and sq8.  Asserts sq8 recall >= fp32 - 0.02
+    at every ef; reports whether the mean attention cosine reaches 0.9 at
+    the largest ef."""
+    import torch
+    from repro_torch.core import eval as evallib
+    from repro_torch.core import search, vamana
+    from repro_torch.serve import retrieval
+    queries = data["queries"]
+    zero_counts(counters)
+    search.HOST_SYNCS = 0
+    t0 = time.perf_counter()
+    idx = retrieval.build_index(data["keys"], data["values"],
+                                vamana.VamanaParams(**SERVE_PARAMS),
+                                metric=metric, quantize="sq8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    syncs_build = search.HOST_SYNCS
+    retrieval.retrieval_attention_batched(idx, queries[:BLOCK], top_k=TOP_K,
+                                          ef=SERVE_EFS[0])       # warm-up
+    sweep = []
+    for ef in SERVE_EFS:
+        for mode in ("none", "sq8"):
+            syncs = search.HOST_SYNCS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, res = retrieval.retrieval_attention_batched(
+                idx, queries, top_k=TOP_K, ef=ef, block_size=BLOCK,
+                visited_impl="hash", expand_width=4, quantize=mode)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            cos = torch.nn.functional.cosine_similarity(out, data["exact"],
+                                                        dim=-1)
+            sweep.append(dict(
+                ef=ef, quantize=mode,
+                recall=evallib.recall_at_k(res.pool_ids, data["gt"]),
+                qps=NQ / dt, seconds=dt, hops=res.hops,
+                host_syncs=search.HOST_SYNCS - syncs,
+                n_fresh=int(res.n_fresh), n_computed=int(res.n_computed),
+                attention_cosine_mean=float(cos.mean()),
+                attention_cosine_min=float(cos.min()),
+                finite=bool(torch.isfinite(out).all()),
+                shape_ok=tuple(out.shape) == (NQ, 128)
+                and tuple(res.pool_ids.shape) == (NQ, TOP_K)))
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    corpus_bytes = dict(fp32=idx.search_keys.numel() * 4,
+                        sq8=idx.quant.codes.numel()
+                        + 4 * (idx.quant.scale.numel()
+                               + idx.quant.norms.numel()))
+    gate = dict(threshold=0.9, ef=max(SERVE_EFS), met=all(
+        r["attention_cosine_mean"] >= 0.9 for r in sweep
+        if r["ef"] == max(SERVE_EFS)))
+    emit("serve", metric=metric, n_ctx=N_CTX, dh=128, nq=NQ, top_k=TOP_K,
+         block_size=BLOCK, visited_impl="hash", expand_width=4,
+         params=SERVE_PARAMS, data_s=data["seconds"], build_s=build_s,
+         host_syncs_build=syncs_build, sweep=sweep, launches=launches,
+         corpus_bytes=corpus_bytes, attention_gate=gate,
+         exact_top_k_attention_cosine=data["exact_top_k_cosine"],
+         reduced="one head of one layer; random values; synthetic "
+                 "clustered keys")
+    by = {(r["ef"], r["quantize"]): r for r in sweep}
+    for ef in SERVE_EFS:
+        fp, q8 = by[(ef, "none")], by[(ef, "sq8")]
+        if q8["recall"] < fp["recall"] - 0.02:
+            raise AssertionError(f"{metric} ef={ef}: sq8 recall "
+                                 f"{q8['recall']} < fp32 {fp['recall']} - "
+                                 f"0.02")
+    for r in sweep:
+        if not (r["finite"] and r["shape_ok"] and 0 <= r["recall"] <= 1):
+            raise AssertionError(f"bad serving output {r}")
+    for name in ("gather_distance", "gather_distance_sq8"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"serve path")
     return launches
 
 
@@ -409,8 +785,10 @@ def main() -> int:
     from repro_torch import resolve_device
     from repro_torch.kernels import gather_distance, l2_distance
     resolve_device("cuda")           # pins TF32 off for the whole run
-    counters = {"gather_distance": gather_distance,
-                "pairwise_distance": l2_distance}
+    counters = {"gather_distance": (gather_distance, "LAUNCHES"),
+                "pairwise_distance": (l2_distance, "LAUNCHES"),
+                "gather_distance_sq8": (gather_distance, "LAUNCHES_SQ8"),
+                "pairwise_distance_sq8": (l2_distance, "LAUNCHES_SQ8")}
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -419,9 +797,19 @@ def main() -> int:
         return 0
     kernels = phase_kernels(args.n)
     phase_exact()
-    launches = phase_main(args.n, counters)
+    by_path = {"main": phase_main(args.n, counters)}
+    phase_serve_exact()
+    data = serve_data()
+    # the index's default ip metric, then cosine on the same cache: on this
+    # geometry the raw-ip graph traps every search near its entry, in the
+    # reference as in the port (PERF.md, ROADMAP queue 3)
+    by_path["serve_ip"] = phase_serve(counters, data, "ip")
+    by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
+    del data
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]]
+                                   for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,16 +7,49 @@ Same convention as the reference (smaller = closer):
   cosine  d(q, x) = 1 - <q~, x~>   (ip over unit-normalized vectors)
 
 Only two kernel forms exist ("l2" and "ip"); ``Metric.prepare`` applies the
-cosine normalization once at the data boundary.  The int8 corpus view
-(``QuantizedData``/``quantize_sq8``) belongs to the sq8 slice.
+cosine normalization once at the data boundary; ``prepare_quantized``
+adds the serving path's int8 corpus view (``QuantizedData``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 KERNEL_FORMS = ("l2", "ip")
+
+# Serving-time corpus representations: "none" searches the fp32 corpus,
+# "sq8" beam-searches int8 codes and re-ranks the final pool against fp32.
+QUANTIZE_MODES = ("none", "sq8")
+
+
+class QuantizedData(NamedTuple):
+    """A symmetric per-dimension int8 view of a prepared corpus.
+
+    codes: int8[n, d] ``clip(round(x / scale), -127, 127)``;
+    scale: f32[d] ``max|x[:, j]| / 127`` (1 for an all-zero dimension);
+    norms: f32[n] squared norms of the *dequantized* rows ``codes * scale``,
+    so the l2 form prices distances to the dequantized corpus exactly."""
+    codes: torch.Tensor
+    scale: torch.Tensor
+    norms: torch.Tensor
+
+
+def quantize_sq8(x: torch.Tensor) -> QuantizedData:
+    """Symmetric per-dimension int8 scalar quantization of prepared data.
+
+    Queries stay fp32 and are pre-scaled by ``scale`` at search time
+    (asymmetric distance computation): per-dimension scales cannot ride an
+    int8 x int8 dot.  ``torch.round`` rounds half to even, as the
+    reference's ``jnp.round`` does."""
+    x = x.to(torch.float32)
+    amax = torch.amax(torch.abs(x), dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    deq = codes.to(torch.float32) * scale
+    return QuantizedData(codes=codes.contiguous(), scale=scale.contiguous(),
+                         norms=torch.sum(deq * deq, dim=-1).contiguous())
 
 
 def normalize(x: torch.Tensor, *, eps: float = 1e-12) -> torch.Tensor:
@@ -54,6 +87,10 @@ class Metric:
     def prepare(self, x: torch.Tensor) -> torch.Tensor:
         """One-time data-boundary transform (unit-normalize for cosine)."""
         return normalize(x) if self.normalize else x
+
+    def prepare_quantized(self, x: torch.Tensor) -> QuantizedData:
+        """``prepare`` (cosine quantizes unit vectors), then int8 SQ."""
+        return quantize_sq8(self.prepare(x))
 
 
 L2 = Metric("l2", "l2")

@@ -15,10 +15,20 @@ ESO (``share_cache=True``): a per-query V_delta membership bitmap shared by
 the m graphs, so ``n_computed`` counts the union of visited (query,
 neighbor) pairs while ``n_fresh`` counts each graph's own work.
 
-Visited state is the dense bitmap (``visited_impl="dense"``).  The
-reference's ``.at[idx].set(True, mode="drop")`` writes with a sentinel
-index ``n`` become writes into one extra trash column: the bitmaps here are
-``n + 1`` wide internally and are sliced back to ``n`` on return.
+Visited state (``visited_impl``):
+  "dense"  bool bitmaps, exact counters, O(n) memory per query.  The
+           reference's ``.at[idx].set(True, mode="drop")`` writes with a
+           sentinel index ``n`` become writes into one extra trash column:
+           the bitmaps here are ``n + 1`` wide internally and are sliced
+           back to ``n`` on return.
+  "hash"   open-addressing int32 key tables (core/hashset.py) sized from
+           the hop bound, O(ef*W*M*hops) memory per query whatever n; no
+           false positives, overflow degrades to revisits.  The serving
+           default.
+
+The corpus is either an fp32 (n, d) tensor or a ``metric.QuantizedData``
+(the sq8 serving path): then the hops price int8 codes through the int8
+gather kernel, and ``knn_search`` re-ranks the final pool against fp32.
 """
 from __future__ import annotations
 
@@ -27,15 +37,12 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import as_tensor, resolve_device
+from repro_torch.core import hashset
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.graph import INVALID
 from repro_torch.kernels import ops
 
 VISITED_IMPLS = ("dense", "hash")
-_HASH_TODO = ("visited_impl='hash' (core/hashset.py) is not ported yet: "
-              "ROADMAP.md queue 1, hash visited state")
-_SQ8_TODO = ("quantize='sq8' is not ported yet: ROADMAP.md queue 1, the sq8 "
-             "serving slice (kernels 3-4)")
 
 # Host round trips made by the hop loop's condition (one per hop check).
 HOST_SYNCS = 0
@@ -48,17 +55,22 @@ class SearchResult(NamedTuple):
     n_computed: torch.Tensor  # int64[] actually computed (ESO)
     hops: int
     cache_d: torch.Tensor     # float32[b, 1] dummy (API parity)
-    cache_has: torch.Tensor   # bool[b, n] V_delta membership (or [b, 1])
+    cache_has: torch.Tensor   # bool[b, n] dense | int32[b, S] hash table
+                              # (or bool[b, 1] without a shared cache)
 
 
 def fresh_cache(b: int, n: int, share_cache: bool,
-                visited_impl: str = "dense", *,
+                visited_impl: str = "dense", *, slots: int | None = None,
                 device: "str | torch.device" = "cpu"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Empty V_delta: (dummy cache_d, bool[b, n] membership or [b, 1])."""
-    if visited_impl == "hash":
-        raise NotImplementedError(_HASH_TODO)
+    """Empty V_delta: (dummy cache_d, membership).
+
+    Membership is bool[b, n] (dense), an int32[b, slots] key table (hash),
+    or a bool[b, 1] dummy without a shared cache."""
     dummy = torch.zeros((b, 1), dtype=torch.float32, device=device)
+    if share_cache and visited_impl == "hash":
+        return dummy, hashset.make_tables(
+            (b,), slots or hashset.CACHE_SLOTS_CAP >> 4, device=device)
     w = n if share_cache else 1
     return dummy, torch.zeros((b, w), dtype=torch.bool, device=device)
 
@@ -108,17 +120,63 @@ def _merge_topk(pool_ids, pool_dist, expanded, cand_ids, cand_dist,
     return out_ids, out_dist, out_exp
 
 
-def _gathered_distance(data, flat_ids, valid, queries, metric, cached=None):
-    """(b, k) distances from each query to ``data[flat_ids]`` (fp32 only).
+def apply_tombstones(pool_ids, pool_dist, tomb_ids):
+    """Mask tombstoned ids out of a sorted pool (deleted nodes).
 
-    Calls the gather kernel's ids form, so the (b, k, d) slab is never
+    ``tomb_ids`` is int32[..., T], INVALID-padded (padding never matches:
+    the equality is guarded on ``pool_ids != INVALID``).  Matching slots
+    become INVALID/+inf and move behind every survivor by a stable sort on
+    the dead flag, so survivors keep their order."""
+    hit = (pool_ids[..., :, None] == tomb_ids[..., None, :]).any(-1)
+    dead = hit & (pool_ids != INVALID)
+    pool_ids = torch.where(dead, INVALID, pool_ids)
+    pool_dist = torch.where(dead, float("inf"), pool_dist)
+    order = torch.sort(dead.to(torch.uint8), dim=-1, stable=True).indices
+    return (torch.gather(pool_ids, -1, order),
+            torch.gather(pool_dist, -1, order))
+
+
+def _corpus_len(data) -> int:
+    """Row count of an fp32 corpus or a ``metric.QuantizedData``."""
+    if isinstance(data, metric_lib.QuantizedData):
+        return data.codes.shape[0]
+    return data.shape[0]
+
+
+def _gathered_distance(data, flat_ids, valid, queries, metric, cached=None):
+    """(b, k) distances from each query to row ``flat_ids`` of the corpus.
+
+    Calls a gather kernel's ids form (fp32, or int8 codes for a
+    ``QuantizedData`` corpus), so the (b, k, d) slab is never
     materialized; lanes with ``valid`` False are discarded by every caller
     and pass ``cached`` (+inf) through without reading their rows."""
     if cached is None:
         cached = torch.full(flat_ids.shape, float("inf"),
                             device=flat_ids.device)
+    if isinstance(data, metric_lib.QuantizedData):
+        return ops.gather_distance_q_ids(queries, data, flat_ids,
+                                         cached=cached, mask=valid,
+                                         metric=metric)
     return ops.gather_distance_ids(queries, data, flat_ids, cached=cached,
                                    mask=valid, metric=metric)
+
+
+def rerank_pool(queries, data, pool_ids, *, metric):
+    """Re-price a quantized search's pool against the fp32 corpus.
+
+    ``data`` is the fp32 corpus in the metric's prepared space (only the
+    queries normalize here).  INVALID slots keep +inf and sink; ties keep
+    the quantized pool's order (stable sort).  Returns (pool_ids,
+    pool_dist, n_rerank), ``n_rerank`` the fp32 distances computed."""
+    valid = pool_ids != INVALID
+    dist = ops.gather_distance_ids(
+        queries, data, torch.clamp_min(pool_ids, 0),
+        cached=torch.full(pool_ids.shape, float("inf"),
+                          device=pool_ids.device),
+        mask=valid, metric=metric)
+    order = torch.sort(dist, dim=-1, stable=True).indices
+    return (torch.gather(pool_ids, -1, order), torch.gather(dist, -1, order),
+            valid.sum())
 
 
 class _Hop(NamedTuple):
@@ -151,12 +209,15 @@ def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
 
     ``unexp`` marks the unexpanded pool slots within each graph's ef (the
     loop condition's operand); padding rows never hold pool entries, so
-    they never expand.  ``visited`` (bool[b, m, n+1]) and ``cache_has``
-    (bool[b, n+1]) are updated in place; column n is the trash slot for
-    dropped writes.
-    Returns (pool_ids, pool_dist, expanded, n_fresh, n_computed)."""
+    they never expand.  Dense state (``visited`` bool[b, m, n+1],
+    ``cache_has`` bool[b, n+1]) is updated in place, column n being the
+    trash slot for dropped writes; hash state (int32 key tables) is
+    replaced.
+    Returns (pool_ids, pool_dist, expanded, visited, cache_has, n_fresh,
+    n_computed)."""
     b, m, ef_max = pool_ids.shape
-    n = data.shape[0]
+    n = _corpus_len(data)
+    hash_visited = visited.dtype != torch.bool
     mx = graph_ids.shape[2]
     kx = width * mx
 
@@ -181,7 +242,14 @@ def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
     act_flat = act[..., None].expand(b, m, width, mx).reshape(b, m, kx)
     prelim = ((nbrs != INVALID) & act_flat
               & (nbrs != query_ids[:, None, None]) & ~dup)
-    valid = prelim & ~visited[hop.b3, hop.m3, nbrs_safe]
+    if hash_visited:
+        visited, vis, _ = hashset.lookup_insert(visited, nbrs_safe, prelim)
+        # overflow guard: a dropped insert can re-propose a pooled node,
+        # which dense state cannot (a pooled node has its visit bit)
+        in_pool = (nbrs_safe[..., :, None] == pool_ids[..., None, :]).any(-1)
+        valid = prelim & ~vis & ~in_pool
+    else:
+        valid = prelim & ~visited[hop.b3, hop.m3, nbrs_safe]
 
     flat_ids = nbrs_safe.reshape(b, m * kx)
     flat_valid = valid.reshape(b, m * kx)
@@ -193,7 +261,12 @@ def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
 
     dists = _gathered_distance(data, flat_ids, flat_valid, queries, metric,
                                hop.inf)
-    if share_cache:
+    if share_cache and cache_has.dtype != torch.bool:
+        # first-occurrence lanes only: keys distinct within each row
+        cache_has, c_found, _ = hashset.lookup_insert(cache_has, flat_ids,
+                                                      first)
+        n_comp = (first & ~c_found).sum()
+    elif share_cache:
         b2 = hop.b3[:, :, 0]
         need = flat_valid & ~cache_has[b2, flat_ids]
         cache_has[b2, torch.where(need, flat_ids, n)] = True
@@ -201,17 +274,19 @@ def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
     else:
         n_comp = flat_valid.sum()
     n_fresh = flat_valid.sum()
-    visited[hop.b3, hop.m3, torch.where(valid, nbrs_safe, n)] = True
+    if not hash_visited:
+        visited[hop.b3, hop.m3, torch.where(valid, nbrs_safe, n)] = True
 
     cand_ids = torch.where(valid, nbrs, INVALID)
     cand_dist = torch.where(valid, dists.reshape(b, m, kx), float("inf"))
     pool_ids, pool_dist, expanded = _merge_topk(
         pool_ids, pool_dist, expanded, cand_ids, cand_dist, hop.rr)
-    return pool_ids, pool_dist, expanded, n_fresh, n_comp
+    return (pool_ids, pool_dist, expanded, visited, cache_has, n_fresh,
+            n_comp)
 
 
 def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
-                data: torch.Tensor,           # f32[n, d]
+                data,                         # f32[n, d] | QuantizedData
                 queries: torch.Tensor,        # f32[b, d]
                 query_ids: torch.Tensor,      # int32[b]; -1 = external
                 row_mask: torch.Tensor,       # bool[b]; False = padding row
@@ -225,23 +300,30 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
                 share_cache: bool,
                 metric: str = "l2",
                 visited_impl: str = "dense",
+                hash_slots: int | None = None,
                 expand_width: int = 1) -> SearchResult:
-    """Lockstep beam search of b queries over m graphs (one device)."""
+    """Lockstep beam search of b queries over m graphs (one device).
+
+    A ``QuantizedData`` corpus was prepared before quantization, so for
+    cosine only the queries normalize here.  ``hash_slots`` overrides the
+    hash tables' auto size per (query, graph); the shared V_delta table
+    takes m times that."""
     global HOST_SYNCS
     if visited_impl not in VISITED_IMPLS:
         raise ValueError(
             f"visited_impl {visited_impl!r} not in {VISITED_IMPLS}")
-    if visited_impl == "hash":
-        raise NotImplementedError(_HASH_TODO)
     if expand_width < 1:
         raise ValueError(f"expand_width must be >= 1, got {expand_width}")
     width = min(expand_width, ef_max)
     met = metric_lib.resolve(metric)
+    quantized = isinstance(data, metric_lib.QuantizedData)
     if met.normalize:
-        data = metric_lib.normalize(data)
+        if not quantized:
+            data = metric_lib.normalize(data)
         queries = metric_lib.normalize(queries)
     metric = met.kernel
-    data = data.contiguous()
+    if not quantized:
+        data = data.contiguous()
     queries = queries.contiguous()
     m, n, mx = graph_ids.shape
     b = queries.shape[0]
@@ -255,10 +337,24 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
                           device=dev)
     pool_dist = torch.full((b, m, ef_max), float("inf"), device=dev)
     expanded = torch.zeros((b, m, ef_max), dtype=torch.bool, device=dev)
-    visited = torch.zeros((b, m, n + 1), dtype=torch.bool, device=dev)
+    hashed = visited_impl == "hash"
+    if hashed:
+        visited = hashset.make_tables(
+            (b, m), hash_slots or hashset.auto_slots(max_hops, width * mx),
+            device=dev)
+    else:
+        visited = torch.zeros((b, m, n + 1), dtype=torch.bool, device=dev)
     if cache_has is None:
-        cache_d, cache_has = fresh_cache(b, n, share_cache, device=dev)
-    if share_cache:      # private copy with the trash column
+        # the V_delta union absorbs all m graphs' inserts
+        cache_slots = (
+            min(hashset.next_pow2(m * hash_slots), hashset.CACHE_SLOTS_CAP)
+            if hash_slots else
+            hashset.auto_slots(max_hops, width * mx, searches=m,
+                               cap=hashset.CACHE_SLOTS_CAP))
+        cache_d, cache_has = fresh_cache(b, n, share_cache, visited_impl,
+                                         slots=cache_slots, device=dev)
+    cache_hashed = cache_has.dtype != torch.bool
+    if share_cache and not cache_hashed:   # private copy with trash column
         cache_has = torch.cat([cache_has, cache_has.new_zeros((b, 1))], -1)
     n_fresh = torch.zeros((), dtype=torch.int64, device=dev)
     n_comp = torch.zeros((), dtype=torch.int64, device=dev)
@@ -269,7 +365,11 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
     d0_all = _gathered_distance(data, ep_all, ok_all, queries, metric)
     for i in range(m):
         ep, ok, ep_safe = entry[:, i], ok_all[:, i], ep_all[:, i]
-        if share_cache:
+        if share_cache and cache_hashed:
+            cache_has, c_found, _ = hashset.lookup_insert(
+                cache_has, ep_safe[:, None], ok[:, None])
+            n_comp += (ok & ~c_found[:, 0]).sum()
+        elif share_cache:
             need = ok & ~cache_has[brange, ep_safe]
             cache_has[brange, torch.where(need, ep_safe, n)] = True
             n_comp += need.sum()
@@ -278,7 +378,11 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
         n_fresh += ok.sum()
         pool_ids[:, i, 0] = torch.where(ok, ep, INVALID)
         pool_dist[:, i, 0] = torch.where(ok, d0_all[:, i], float("inf"))
-        visited[brange, i, torch.where(ok, ep_safe, n)] = True
+        if hashed:
+            visited[:, i] = hashset.lookup_insert(
+                visited[:, i], ep_safe[:, None], ok[:, None])[0]
+        else:
+            visited[brange, i, torch.where(ok, ep_safe, n)] = True
 
     # Padding rows (row_mask False) start with an empty pool, so the
     # unexpanded mask is already restricted to live rows.
@@ -288,14 +392,15 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
         HOST_SYNCS += 1
         if not bool(unexp.any()):             # the one host sync per hop
             break
-        pool_ids, pool_dist, expanded, nf, nc = _expand_all_graphs(
+        (pool_ids, pool_dist, expanded, visited, cache_has, nf,
+         nc) = _expand_all_graphs(
             graph_ids, data, queries, query_ids, unexp, pool_ids,
             pool_dist, expanded, visited, cache_has, share_cache, metric,
             width, hop)
         n_fresh += nf
         n_comp += nc
         hops += 1
-    if share_cache:
+    if share_cache and not cache_hashed:
         cache_has = cache_has[:, :n]
     # Mask out slots beyond each graph's ef (they are not part of C(u)).
     pool_ids = torch.where(slot_mask, pool_ids, INVALID)
@@ -313,19 +418,34 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
                max_hops: int | None = None, *,
                metric: str = "l2",
                visited_impl: str = "dense",
+               hash_slots: int | None = None,
                expand_width: int = 1,
                row_mask=None,
+               tombstone_ids=None,
                quantize: str = "none",
+               quant: metric_lib.QuantizedData | None = None,
                device: "str | torch.device" = "cuda") -> SearchResult:
-    """Single-graph external k-ANNS (evaluation path, Alg. 1).
+    """Single-graph external k-ANNS (evaluation and serving path, Alg. 1).
 
     ``metric`` must match the metric the graph was built under; pool
     distances come back in that metric's units.  ``expand_width`` expands
-    that many frontier nodes per hop (1 = the paper's schedule)."""
-    if quantize == "sq8":
-        raise NotImplementedError(_SQ8_TODO)
-    if quantize != "none":
-        raise ValueError(f"quantize {quantize!r} not in ('none', 'sq8')")
+    that many frontier nodes per hop (1 = the paper's schedule);
+    ``row_mask`` marks padding rows, which do no search work.
+
+    ``quantize="sq8"`` beam-searches the int8 ``quant`` corpus (a
+    ``QuantizedData`` over the same prepared vectors as ``data``) and
+    re-ranks the final ef-wide pool against the fp32 ``data`` before the k
+    cut; the re-rank's distances add to ``n_computed``, not ``n_fresh``.
+    ``tombstone_ids`` (int32[T], INVALID-padded) masks deleted nodes out of
+    the ef-wide pool before the k cut."""
+    if quantize not in metric_lib.QUANTIZE_MODES:
+        raise ValueError(
+            f"quantize {quantize!r} not in {metric_lib.QUANTIZE_MODES}")
+    if quantize == "sq8" and quant is None:
+        raise ValueError(
+            "quantize='sq8' needs the quantized corpus: pass "
+            "quant=metric.QuantizedData (Metric.prepare_quantized over the "
+            "same vectors as data)")
     if k > ef:
         raise ValueError(
             f"k={k} > ef={ef}: the search pool holds only ef candidates, so "
@@ -337,18 +457,38 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
     queries = as_tensor(queries, dev, torch.float32)
     if graph_ids.dim() == 2:
         graph_ids = graph_ids[None]
+    if quantize == "sq8":
+        quant = metric_lib.QuantizedData(
+            as_tensor(quant.codes, dev, torch.int8),
+            as_tensor(quant.scale, dev, torch.float32),
+            as_tensor(quant.norms, dev, torch.float32))
+    if tombstone_ids is not None:
+        tombstone_ids = as_tensor(tombstone_ids, dev, torch.int32)
+        if tombstone_ids.dim() != 1:
+            raise ValueError(f"tombstone_ids must be a 1-D id array, got "
+                             f"shape {tuple(tombstone_ids.shape)}")
+        if tombstone_ids.shape[0] == 0:
+            tombstone_ids = None
     b = queries.shape[0]
     ep = torch.as_tensor(entry, dtype=torch.int32, device=dev)
     ep = ep.expand(b).reshape(b, 1).contiguous()
     row_mask = (torch.ones(b, dtype=torch.bool, device=dev) if row_mask is None
                 else as_tensor(row_mask, dev, torch.bool))
     res = beam_search(
-        graph_ids, data, queries,
+        graph_ids, quant if quantize == "sq8" else data, queries,
         torch.full((b,), INVALID, dtype=torch.int32, device=dev), row_mask,
         torch.tensor([ef], dtype=torch.int32, device=dev), ep,
         ef_max=ef, max_hops=max_hops or default_max_hops(ef, expand_width),
         share_cache=False, metric=metric, visited_impl=visited_impl,
-        expand_width=expand_width)
-    return SearchResult(res.pool_ids[:, 0, :k], res.pool_dist[:, 0, :k],
-                        res.n_fresh, res.n_computed, res.hops,
-                        res.cache_d, res.cache_has)
+        hash_slots=hash_slots, expand_width=expand_width)
+    pool_i, pool_d = res.pool_ids[:, 0], res.pool_dist[:, 0]
+    n_comp = res.n_computed
+    if quantize == "sq8":
+        met = metric_lib.resolve(metric)
+        pool_i, pool_d, n_rr = rerank_pool(queries, met.prepare(data),
+                                           pool_i, metric=met)
+        n_comp = n_comp + n_rr
+    if tombstone_ids is not None:
+        pool_i, pool_d = apply_tombstones(pool_i, pool_d, tombstone_ids)
+    return SearchResult(pool_i[:, :k], pool_d[:, :k], res.n_fresh, n_comp,
+                        res.hops, res.cache_d, res.cache_has)

@@ -1,6 +1,7 @@
-// fp32 distance kernels for Hopper (sm_90a), plain C interface for ctypes.
+// Distance kernels for Hopper (sm_90a), plain C interface for ctypes.
 //
-// Two kernels carry FastPGT's estimation path:
+// Four kernels: the fp32 pair carries FastPGT's estimation path and the
+// serving re-rank; the int8 (SQ8) pair carries the quantized serving search.
 //
 // 1. gather distance -- replaces the Pallas kernel
 //    repro/kernels/gather_distance.py::gather_distance (_gather_dist_kernel).
@@ -30,6 +31,28 @@
 //    registers; 128 threads also accumulate the tile's row norms from the
 //    same shared tiles, and the epilogue forms the l2 / ip distance.  Full
 //    fp32 FMA: no tensor cores, no TF32.
+//
+// 3. gather distance, int8 -- replaces the Pallas kernel
+//    repro/kernels/gather_distance.py::gather_distance_sq8
+//    (_gather_dist_sq8_kernel).  Asymmetric distance computation against
+//    SQ8 codes: with qs = u * scale (pre-scaled once by the wrapper),
+//      cross = <qs_b, codes(b,i)>,  l2 = max((cn + |u|^2) - 2 cross, 0),
+//      ip = 1 - cross,  cn = squared norm of the dequantized row,
+//    and the same cache pass-through and slab / ids forms as kernel 1.
+//    Bound: memory.  At the serving hop shape b=64, k=W*Mx=4*32=128, d=128
+//    it reads 1.05 MB of codes (~0.3 us at 3.35 TB/s): launch latency sets
+//    its time.  Design: kernel 1's, one warp per candidate, with char4 loads
+//    of the 128-byte code row against float4 loads of qs, fp32 FMAs and a
+//    shuffle reduction.  __dp4a does not apply: the per-dimension scale
+//    keeps qs in fp32.
+//
+// 4. pairwise distance, int8 -- replaces the Pallas kernel
+//    repro/kernels/l2_distance.py::pairwise_distance_sq8 (_dist_sq8_kernel).
+//    Kernel 2's tiled product instantiated for an int8 corpus: the code
+//    tile is converted to fp32 as it is stored in shared memory, and the
+//    l2 epilogue takes the precomputed norms (|q|^2 and the dequantized cn)
+//    instead of accumulating them.  Bound: fp32 operations, 33.6 GFLOP at
+//    (1000, 131072, 128), ~0.50 ms at 67 TFLOP/s.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -115,6 +138,73 @@ void launch_gather(const float* u, const float* rows, const int32_t* ids,
 }
 
 // ---------------------------------------------------------------------------
+// gather distance, int8 codes (ADC)
+// ---------------------------------------------------------------------------
+
+template <int KIND, bool VEC4>
+__global__ void gather_distance_sq8_kernel(const float* __restrict__ qs,
+                                           const float* __restrict__ qn,
+                                           const int8_t* __restrict__ codes,
+                                           const float* __restrict__ cn,
+                                           const int32_t* __restrict__ ids,
+                                           const float* __restrict__ cached,
+                                           const uint8_t* __restrict__ mask,
+                                           float* __restrict__ out,
+                                           int b, int k, int d) {
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= static_cast<int64_t>(b) * k) return;   // warp-uniform exit
+  // slab form: codes (b,k,d), cn (b,k) share the lane index; ids form:
+  // codes (n,d), cn (n) are indexed by the candidate id
+  const int64_t row = ids ? static_cast<int64_t>(ids[warp]) : warp;
+  if (!mask[warp] || row < 0) {                       // warp-uniform branch
+    if (lane == 0) out[warp] = cached[warp];
+    return;
+  }
+  const int64_t qi = warp / k;
+  const int8_t* __restrict__ c = codes + row * d;
+  const float* __restrict__ q = qs + qi * d;
+  float acc = 0.f;
+  if (VEC4) {
+    const char4* c4 = reinterpret_cast<const char4*>(c);
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    for (int j = lane; j < (d >> 2); j += 32) {
+      const char4 x = c4[j];
+      const float4 a = q4[j];
+      acc += a.x * static_cast<float>(x.x) + a.y * static_cast<float>(x.y) +
+             a.z * static_cast<float>(x.z) + a.w * static_cast<float>(x.w);
+    }
+  } else {
+    for (int j = lane; j < d; j += 32) acc += q[j] * static_cast<float>(c[j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0)
+    out[warp] = (KIND == KIND_L2) ? fmaxf((cn[row] + qn[qi]) - 2.f * acc, 0.f)
+                                  : 1.f - acc;
+}
+
+template <int KIND>
+void launch_gather_sq8(const float* qs, const float* qn, const int8_t* codes,
+                       const float* cn, const int32_t* ids,
+                       const float* cached, const uint8_t* mask, float* out,
+                       int b, int k, int d, bool vec4, cudaStream_t stream) {
+  const int64_t threads = static_cast<int64_t>(b) * k * 32;
+  const unsigned grid =
+      static_cast<unsigned>((threads + GATHER_THREADS - 1) / GATHER_THREADS);
+  if (vec4)
+    gather_distance_sq8_kernel<KIND, true>
+        <<<grid, GATHER_THREADS, 0, stream>>>(qs, qn, codes, cn, ids, cached,
+                                              mask, out, b, k, d);
+  else
+    gather_distance_sq8_kernel<KIND, false>
+        <<<grid, GATHER_THREADS, 0, stream>>>(qs, qn, codes, cn, ids, cached,
+                                              mask, out, b, k, d);
+}
+
+// ---------------------------------------------------------------------------
 // pairwise distance
 // ---------------------------------------------------------------------------
 
@@ -123,10 +213,16 @@ constexpr int BN = 64;    // corpus rows per block
 constexpr int BK = 16;    // d elements per shared-memory step
 constexpr int PAIR_THREADS = 256;
 
-template <int KIND>
+// XT is the corpus type (float, or int8_t codes converted as they are
+// stored in shared memory).  PRENORM takes the l2 norms from qn / xn (the
+// int8 form's |q|^2 and dequantized-row norms) instead of accumulating them
+// from the tiles.
+template <int KIND, typename XT, bool PRENORM>
 __global__ void __launch_bounds__(PAIR_THREADS)
 pairwise_distance_kernel(const float* __restrict__ q,
-                         const float* __restrict__ x,
+                         const XT* __restrict__ x,
+                         const float* __restrict__ qn,
+                         const float* __restrict__ xn,
                          float* __restrict__ out, int nq, int nx, int d) {
   __shared__ float qs[BK][BM + 4];   // transposed tiles: [d step][row]
   __shared__ float xs[BK][BN + 4];
@@ -154,10 +250,11 @@ pairwise_distance_kernel(const float* __restrict__ q,
                       ? q[static_cast<int64_t>(gr) * d + gk] : 0.f;
       const int gc = col0 + r;
       xs[kk][r] = (gc < nx && gk < d)
-                      ? x[static_cast<int64_t>(gc) * d + gk] : 0.f;
+                      ? static_cast<float>(x[static_cast<int64_t>(gc) * d + gk])
+                      : 0.f;
     }
     __syncthreads();
-    if (KIND == KIND_L2) {
+    if (KIND == KIND_L2 && !PRENORM) {
       if (tid < BM) {
 #pragma unroll
         for (int kk = 0; kk < BK; ++kk) norm += qs[kk][tid] * qs[kk][tid];
@@ -182,8 +279,15 @@ pairwise_distance_kernel(const float* __restrict__ q,
     __syncthreads();
   }
   if (KIND == KIND_L2) {
-    if (tid < BM) qnorm[tid] = norm;
-    else if (tid < BM + BN) xnorm[tid - BM] = norm;
+    if (PRENORM) {
+      if (tid < BM)
+        qnorm[tid] = (row0 + tid < nq) ? qn[row0 + tid] : 0.f;
+      else if (tid < BM + BN)
+        xnorm[tid - BM] = (col0 + tid - BM < nx) ? xn[col0 + tid - BM] : 0.f;
+    } else {
+      if (tid < BM) qnorm[tid] = norm;
+      else if (tid < BM + BN) xnorm[tid - BM] = norm;
+    }
     __syncthreads();
   }
 #pragma unroll
@@ -234,11 +338,47 @@ int pairwise_distance_f32(const float* q, const float* x, float* out, int nq,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((nx + BN - 1) / BN, (nq + BM - 1) / BM);
   if (kind == KIND_IP)
-    pairwise_distance_kernel<KIND_IP><<<grid, PAIR_THREADS, 0, s>>>(
-        q, x, out, nq, nx, d);
+    pairwise_distance_kernel<KIND_IP, float, false>
+        <<<grid, PAIR_THREADS, 0, s>>>(q, x, nullptr, nullptr, out, nq, nx, d);
   else
-    pairwise_distance_kernel<KIND_L2><<<grid, PAIR_THREADS, 0, s>>>(
-        q, x, out, nq, nx, d);
+    pairwise_distance_kernel<KIND_L2, float, false>
+        <<<grid, PAIR_THREADS, 0, s>>>(q, x, nullptr, nullptr, out, nq, nx, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Gather distance against int8 codes, both forms.  qs (b,d) = u * scale,
+// qn (b) = |u|^2.  ids == nullptr selects the slab form (codes (b,k,d),
+// cn (b,k)); otherwise codes (n,d), cn (n) and ids (b,k) int32.
+int gather_distance_sq8(const float* qs, const float* qn, const int8_t* codes,
+                        const float* cn, const int32_t* ids,
+                        const float* cached, const uint8_t* mask, float* out,
+                        int b, int k, int d, int kind, int vec4,
+                        void* stream) {
+  if (static_cast<int64_t>(b) * k == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == KIND_IP)
+    launch_gather_sq8<KIND_IP>(qs, qn, codes, cn, ids, cached, mask, out, b,
+                               k, d, vec4 != 0, s);
+  else
+    launch_gather_sq8<KIND_L2>(qs, qn, codes, cn, ids, cached, mask, out, b,
+                               k, d, vec4 != 0, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pairwise distance against int8 codes: qs (nq,d) = q * scale, qn (nq),
+// codes (nx,d) int8, cn (nx) -> out (nq,nx); kind 0 = l2, 1 = ip.
+int pairwise_distance_sq8(const float* qs, const float* qn,
+                          const int8_t* codes, const float* cn, float* out,
+                          int nq, int nx, int d, int kind, void* stream) {
+  if (static_cast<int64_t>(nq) * nx == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((nx + BN - 1) / BN, (nq + BM - 1) / BM);
+  if (kind == KIND_IP)
+    pairwise_distance_kernel<KIND_IP, int8_t, true>
+        <<<grid, PAIR_THREADS, 0, s>>>(qs, codes, qn, cn, out, nq, nx, d);
+  else
+    pairwise_distance_kernel<KIND_L2, int8_t, true>
+        <<<grid, PAIR_THREADS, 0, s>>>(qs, codes, qn, cn, out, nq, nx, d);
   return static_cast<int>(cudaGetLastError());
 }
 

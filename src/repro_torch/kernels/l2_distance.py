@@ -9,8 +9,17 @@ a shared-memory tiled SIMT product (64x64 output tile, 16-wide d steps,
 4x4 register tile per thread) with the row norms accumulated from the same
 tiles and an l2/ip epilogue; full fp32, no tensor cores, no TF32.
 
+The int8 twin replaces ``pairwise_distance_sq8`` (``_dist_sq8_kernel``):
+the same tiled kernel instantiated for an int8 corpus
+(``pairwise_distance_kernel<KIND, int8_t, true>``), whose code tile is
+converted to fp32 in shared memory and whose l2 epilogue takes the
+precomputed query and dequantized-row norms.  No path of the package calls
+it (the reference reaches it only from its own checks); it is held against
+its plain version on the card.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
-kernel or raises.  ``LAUNCHES`` counts kernel launches.
+kernel or raises.  ``LAUNCHES`` and ``LAUNCHES_SQ8`` count the fp32 and the
+int8 kernel's launches.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 LAUNCHES = 0
+LAUNCHES_SQ8 = 0
 _KINDS = {"l2": 0, "ip": 1}
 _MAX_NQ = 65535 * 64          # gridDim.y limit x query rows per block
 
@@ -31,14 +41,49 @@ def pairwise_distance_plain(q, x, kernel: str = "l2"):
     return ref.pairwise_distance_ref(q, x, kernel)
 
 
-def _lib():
-    fn = _build.load("distance").pairwise_distance_f32
+def pairwise_distance_sq8_plain(qs, qn, codes, cn, kernel: str = "l2"):
+    """Plain PyTorch int8 form: qs (nq, d) = q * scale, qn (nq,), codes
+    (nx, d) int8, cn (nx,)."""
+    return ref.pairwise_distance_adc_ref(qs, qn, codes, cn, kernel)
+
+
+def _launch(entry, operands, kernel, nq, nx, d):
+    """Check ``operands`` (name, tensor, dtype, shape), then launch
+    ``entry`` for an (nq, nx) output over d dimensions."""
+    q = operands[0][1]
+    if kernel not in _KINDS:
+        raise ValueError(f"pairwise_distance: kernel form {kernel!r}")
+    for name, t, dtype, shape in operands:
+        if t.device != q.device:
+            raise ValueError(f"pairwise_distance: {name} on {t.device}, "
+                             f"q on {q.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise TypeError(f"pairwise_distance: {name} must be {dtype} "
+                            f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"pairwise_distance: {name} must be contiguous")
+    if nq > _MAX_NQ:
+        raise ValueError(f"pairwise_distance: nq={nq} > {_MAX_NQ}; block "
+                         f"the queries")
+    out = torch.empty((nq, nx), dtype=torch.float32, device=q.device)
+    fn = getattr(_build.load("distance"), entry)
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, p]
+        fn.argtypes = [p] * (len(operands) + 1) + [ctypes.c_int] * 4 + [p]
         fn.restype = ctypes.c_int
-    return fn
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for _, t, _, _ in operands), out.data_ptr(),
+                 nq, nx, d, _KINDS[kernel], stream)
+    _build.check(err, entry)
+    return out
+
+
+def _shape2(name, t):
+    if t.dim() != 2:
+        raise TypeError(f"pairwise_distance: {name} must be 2-D, got "
+                        f"{tuple(t.shape)}")
+    return tuple(t.shape)
 
 
 def pairwise_distance(q, x, *, kernel: str = "l2"):
@@ -48,29 +93,30 @@ def pairwise_distance(q, x, *, kernel: str = "l2"):
         return pairwise_distance_plain(q, x, kernel)
     if q.device.type != "cuda":
         raise ValueError(f"pairwise_distance: unsupported device {q.device}")
-    if kernel not in _KINDS:
-        raise ValueError(f"pairwise_distance: kernel form {kernel!r}")
-    for name, t in (("q", q), ("x", x)):
-        if t.device != q.device:
-            raise ValueError(f"pairwise_distance: {name} on {t.device}, "
-                             f"q on {q.device}")
-        if t.dtype != torch.float32 or t.dim() != 2:
-            raise TypeError(f"pairwise_distance: {name} must be a 2-D "
-                            f"float32 tensor, got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"pairwise_distance: {name} must be contiguous")
-    nq, d = q.shape
-    nx, d2 = x.shape
-    if d != d2:
-        raise ValueError(f"pairwise_distance: d mismatch {d} vs {d2}")
-    if nq > _MAX_NQ:
-        raise ValueError(f"pairwise_distance: nq={nq} > {_MAX_NQ}; block "
-                         f"the queries")
-    out = torch.empty((nq, nx), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib()(q.data_ptr(), x.data_ptr(), out.data_ptr(), nq, nx, d,
-                     _KINDS[kernel], stream)
-    _build.check(err, "pairwise_distance")
+    nq, d = _shape2("q", q)
+    nx = _shape2("x", x)[0]
+    out = _launch("pairwise_distance_f32",
+                  [("q", q, torch.float32, (nq, d)),
+                   ("x", x, torch.float32, (nx, d))], kernel, nq, nx, d)
     LAUNCHES += 1
+    return out
+
+
+def pairwise_distance_sq8(qs, qn, codes, cn, *, kernel: str = "l2"):
+    """Pairwise distances to an int8 corpus: qs (nq, d) f32 pre-scaled
+    queries, qn (nq,) f32 query norms, codes (nx, d) int8, cn (nx,) f32
+    dequantized-row norms -> (nq, nx) float32."""
+    global LAUNCHES_SQ8
+    if qs.device.type == "cpu":
+        return pairwise_distance_sq8_plain(qs, qn, codes, cn, kernel)
+    if qs.device.type != "cuda":
+        raise ValueError(f"pairwise_distance: unsupported device {qs.device}")
+    nq, d = _shape2("qs", qs)
+    nx = _shape2("codes", codes)[0]
+    out = _launch("pairwise_distance_sq8",
+                  [("qs", qs, torch.float32, (nq, d)),
+                   ("qn", qn, torch.float32, (nq,)),
+                   ("codes", codes, torch.int8, (nx, d)),
+                   ("cn", cn, torch.float32, (nx,))], kernel, nq, nx, d)
+    LAUNCHES_SQ8 += 1
     return out

@@ -1,7 +1,9 @@
 """The metric boundary in front of the distance kernels.
 
-Port of ``repro/kernels/ops.py:44-95``: cosine unit-normalizes its inputs
-here so the kernels only see the "l2" and "ip" forms, and absent
+Port of ``repro/kernels/ops.py:44-161``: cosine unit-normalizes its inputs
+here so the kernels only see the "l2" and "ip" forms (the int8 forms
+normalize only the queries: the codes quantize an already prepared corpus,
+and each call pre-scales its queries by the SQ scale once), and absent
 ``cached``/``mask`` mean "compute every lane".  Dispatch is by the
 tensors' device inside the kernel wrappers: a CUDA tensor launches the
 hand-written kernel, a CPU tensor takes the plain PyTorch version, and
@@ -63,3 +65,51 @@ def gather_distance_ids(u, data, ids, cached=None, mask=None,
     return _gd.gather_distance_ids(u.contiguous(), data.contiguous(),
                                    ids.to(torch.int32).contiguous(), cached,
                                    mask, kernel=met.kernel)
+
+
+def prescale(u, scale, metric: "str | metric_lib.Metric" = "l2"):
+    """(q * scale, ||q||^2) of the fp32 queries (cosine normalizes them
+    first): the int8 kernels' query operands, computed once per call."""
+    if metric_lib.resolve(metric).normalize:
+        u = metric_lib.normalize(u)
+    u = u.to(torch.float32)
+    return ((u * scale[None, :]).contiguous(),
+            torch.sum(u * u, dim=-1).contiguous())
+
+
+def pairwise_distance_q(q, quant: metric_lib.QuantizedData,
+                        metric: "str | metric_lib.Metric" = "l2"
+                        ) -> torch.Tensor:
+    """Pairwise distances to an SQ8 corpus: (nq, d) -> (nq, nx) f32,
+    priced against the dequantized rows."""
+    met = metric_lib.resolve(metric)
+    qs, qn = prescale(q, quant.scale, met)
+    return _l2.pairwise_distance_sq8(qs, qn, quant.codes, quant.norms,
+                                     kernel=met.kernel)
+
+
+def gather_distance_q(u, codes, scale, cnorms, cached=None, mask=None,
+                      metric: "str | metric_lib.Metric" = "l2"
+                      ) -> torch.Tensor:
+    """V_delta-aware gathered distances against a (b, k, d) int8 slab with
+    (b, k) dequantized norms ``cnorms``."""
+    met = metric_lib.resolve(metric)
+    qs, qn = prescale(u, scale, met)
+    cached, mask = _defaults(u, codes.shape[0], codes.shape[1], cached, mask)
+    return _gd.gather_distance_sq8(qs, qn, codes.contiguous(),
+                                   cnorms.contiguous(), cached, mask,
+                                   kernel=met.kernel)
+
+
+def gather_distance_q_ids(u, quant: metric_lib.QuantizedData, ids,
+                          cached=None, mask=None,
+                          metric: "str | metric_lib.Metric" = "l2"
+                          ) -> torch.Tensor:
+    """V_delta-aware gathered distances to ``quant.codes[ids]``, read
+    in-kernel with their norms: the (b, k, d) int8 slab is never built."""
+    met = metric_lib.resolve(metric)
+    qs, qn = prescale(u, quant.scale, met)
+    cached, mask = _defaults(u, ids.shape[0], ids.shape[1], cached, mask)
+    return _gd.gather_distance_sq8_ids(qs, qn, quant.codes, quant.norms,
+                                       ids.to(torch.int32).contiguous(),
+                                       cached, mask, kernel=met.kernel)

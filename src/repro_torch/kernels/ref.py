@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the fp32 distance kernels.
+"""Plain PyTorch versions of the distance kernels.
 
-Port of ``repro/kernels/ref.py:14,42``: each function defines the semantics
+Port of ``repro/kernels/ref.py:14-140``: each function defines the semantics
 its CUDA kernel must match, runs as the CPU path of the wrapper, and is the
 yardstick the kernel is checked against on the card.
 """
@@ -42,3 +42,57 @@ def gather_distance_ref(u: torch.Tensor, c: torch.Tensor,
         assert cached is not None
         d2 = torch.where(mask, d2, cached.to(torch.float32))
     return d2
+
+
+def _adc(cross, qn, cn, kernel):
+    """The int8 forms' epilogue: ip 1 - cross, l2 max((cn + qn) - 2 cross, 0)
+    with ``cn`` the dequantized-row norms and ``qn`` the query norms."""
+    if kernel == "ip":
+        return 1.0 - cross
+    return torch.clamp_min((cn + qn) - 2.0 * cross, 0.0)
+
+
+def pairwise_distance_adc_ref(qs, qn, codes, cn, kernel: str = "l2"):
+    """Pairwise distances to an int8 corpus from pre-scaled queries.
+
+    qs (nq, d) = q * scale, qn (nq,) = ||q||^2, codes (nx, d) int8, cn (nx,)
+    dequantized-row norms -> (nq, nx) f32 (the kernel's own signature)."""
+    cross = qs.to(torch.float32) @ codes.to(torch.float32).T
+    return _adc(cross, qn[:, None], cn[None, :], kernel)
+
+
+def gather_distance_adc_ref(qs, qn, codes, cn, cached=None, mask=None,
+                            kernel: str = "l2"):
+    """Gathered distances to int8 codes from pre-scaled queries.
+
+    qs (b, d), qn (b,), codes (b, k, d) int8, cn (b, k); where ``mask`` is
+    False ``cached`` passes through unchanged.  Returns (b, k) f32."""
+    cross = torch.matmul(codes.to(torch.float32),
+                         qs.to(torch.float32)[:, :, None])[..., 0]
+    d2 = _adc(cross, qn[:, None], cn, kernel)
+    if mask is not None:
+        assert cached is not None
+        d2 = torch.where(mask, d2, cached.to(torch.float32))
+    return d2
+
+
+def _prescale(q, scale):
+    q = q.to(torch.float32)
+    return q * scale[None, :], torch.sum(q * q, dim=-1)
+
+
+def pairwise_distance_sq8_ref(q, codes, scale, cnorms, kernel: str = "l2"):
+    """(nq, d) fp32 queries against an SQ8 corpus (codes (nx, d) int8,
+    scale (d,), dequantized norms (nx,)) -> (nq, nx) f32: asymmetric
+    distance computation, the query pre-scaled once by the SQ scale."""
+    qs, qn = _prescale(q, scale)
+    return pairwise_distance_adc_ref(qs, qn, codes, cnorms, kernel)
+
+
+def gather_distance_sq8_ref(u, codes, scale, cnorms, cached=None, mask=None,
+                            kernel: str = "l2"):
+    """The int8 twin of ``gather_distance_ref``: u (b, d) fp32, codes
+    (b, k, d) int8, scale (d,), cnorms (b, k) -> (b, k) f32."""
+    qs, qn = _prescale(u, scale)
+    return gather_distance_adc_ref(qs, qn, codes, cnorms, cached, mask,
+                                   kernel)

@@ -19,6 +19,9 @@ from repro_torch.core import eval as teval
 from repro_torch.core import vamana as tvamana
 
 CFGS = [(24, 10, 1.1), (32, 12, 1.3), (28, 12, 1.2)]
+# Both cross-package builds share one shape (n, d, configs, batch), so the
+# reference's jitted build compiles once per test process.
+N, D = 600, 8
 
 
 def _both(cfgs):
@@ -28,7 +31,7 @@ def _both(cfgs):
 
 def test_multi_build_matches_reference_exactly_on_integer_data():
     r = np.random.default_rng(0)
-    data = np.round(r.normal(size=(600, 8)) * 2).astype(np.float32)
+    data = np.round(r.normal(size=(N, D)) * 2).astype(np.float32)
     jps, tps = _both(CFGS)
     want = jvamana.build_multi_vamana(jnp.asarray(data), jps, seed=3,
                                       batch_size=128)
@@ -73,9 +76,9 @@ def test_multi_build_counter_savings():
 
 def test_gaussian_build_close_to_reference():
     r = np.random.default_rng(11)
-    data = r.normal(size=(600, 12)).astype(np.float32)
-    queries = r.normal(size=(30, 12)).astype(np.float32)
-    jps, tps = _both([(48, 16, 1.2)])
+    data = r.normal(size=(N, D)).astype(np.float32)
+    queries = r.normal(size=(30, D)).astype(np.float32)
+    jps, tps = _both(CFGS)
     want = jvamana.build_multi_vamana(jnp.asarray(data), jps, seed=5,
                                       batch_size=128)
     got = tvamana.build_multi_vamana(data, tps, seed=5, batch_size=128,

@@ -21,7 +21,9 @@ CFGS = [dict(L=24, M=8, alpha=1.0), dict(L=32, M=12, alpha=1.2),
 
 
 def _int_dataset():
-    data, queries = jest.make_dataset(400, 8, 16, seed=2, spread=2.0)
+    # (600, 8) with 3 configs of the same L/M buckets as
+    # tests/test_torch_build.py: one compiled reference build serves both
+    data, queries = jest.make_dataset(600, 8, 16, seed=2, spread=2.0)
     return (np.round(np.asarray(data)).astype(np.float32),
             np.round(np.asarray(queries)).astype(np.float32))
 
@@ -58,19 +60,20 @@ def test_search_a_reference_built_graph():
     """A graph built by the reference, exported as NumPy arrays, searched
     by the port: the same pools as the reference's own search."""
     data, queries = _int_dataset()
-    ps = [jvamana.VamanaParams(L=32, M=12, alpha=1.2)]
+    ps = [jvamana.VamanaParams(**c) for c in CFGS]
     jres = jvamana.build_multi_vamana(jnp.asarray(data), ps, seed=1,
                                       batch_size=128)
     tres = convert.build_result_from_numpy(
         np.asarray(jres.g.ids), np.asarray(jres.g.dist), int(jres.entry),
         jres.counters.as_dict(), jres.params, jres.metric, device="cpu")
     assert tres.counters.as_dict() == jres.counters.as_dict()
-    want = jeval.flat_graph_search_fn(jres.g, 0, jnp.asarray(data),
+    # ef=20 is one of the estimate's own ef values: the same compiled search
+    want = jeval.flat_graph_search_fn(jres.g, 1, jnp.asarray(data),
                                       jres.entry, 10)(jnp.asarray(queries),
-                                                      24)
-    got = teval.flat_graph_search_fn(tres.g, 0, torch.from_numpy(data),
+                                                      20)
+    got = teval.flat_graph_search_fn(tres.g, 1, torch.from_numpy(data),
                                      tres.entry, 10)(
-        torch.from_numpy(queries), 24)
+        torch.from_numpy(queries), 20)
     np.testing.assert_array_equal(got.pool_ids.numpy(),
                                   np.asarray(want.pool_ids))
     np.testing.assert_array_equal(got.pool_dist.numpy(),

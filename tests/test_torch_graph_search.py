@@ -35,13 +35,25 @@ def test_random_knng_ids_bit_identical(seed, n, degree):
 @pytest.mark.parametrize("W", [1, 4])
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
 def test_knn_search_matches_reference_exactly(metric, W):
+    _assert_knn_search_matches_reference(metric, W, "dense")
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_knn_search_hash_matches_reference_exactly(metric):
+    """Hash visit state at W=4 (K = 32 keys per probe call); W=1 hash runs
+    in the shared-cache test below and in tests/test_torch_retrieval.py."""
+    _assert_knn_search_matches_reference(metric, 4, "hash")
+
+
+def _assert_knn_search_matches_reference(metric, W, impl):
     ef, k = 16, 16
     data, adj, queries = _case(5 + W, N, 8, quantize=True)
     want = jsearch.knn_search(jnp.asarray(adj), jnp.asarray(data),
                               jnp.asarray(queries), k, ef, 0, metric=metric,
-                              expand_width=W)
+                              expand_width=W, visited_impl=impl)
     got = tsearch.knn_search(adj, data, queries, k, ef, 0, metric=metric,
-                             expand_width=W, device="cpu")
+                             expand_width=W, visited_impl=impl,
+                             device="cpu")
     np.testing.assert_array_equal(got.pool_ids.numpy(),
                                   np.asarray(want.pool_ids))
     if metric == "cosine":
@@ -68,6 +80,16 @@ def test_knn_search_matches_reference_exactly(metric, W):
 def test_beam_search_shared_cache_counters_match_reference():
     """m=3 graphs, in-batch query ids, shared V_delta (ESO): pools and the
     fresh/computed counters equal the reference's exactly."""
+    _assert_shared_cache_matches_reference("dense")
+
+
+def test_beam_search_hash_shared_cache_matches_reference():
+    """The same with hash visit state: the shared V_delta key table comes
+    back equal to the reference's bit for bit."""
+    _assert_shared_cache_matches_reference("hash")
+
+
+def _assert_shared_cache_matches_reference(impl):
     r = np.random.default_rng(4)
     n, b, m, ef = 96, 12, 3, 16
     data = np.round(r.normal(size=(n, 8)) * 2).astype(np.float32)
@@ -79,7 +101,7 @@ def test_beam_search_shared_cache_counters_match_reference():
     efs = np.array([8, 12, 16], np.int32)
     entry = np.full((b, m), 7, np.int32)
     kw = dict(ef_max=ef, max_hops=jsearch.default_max_hops(ef),
-              share_cache=True, metric="l2")
+              share_cache=True, metric="l2", visited_impl=impl)
     want = jsearch.beam_search(
         jnp.asarray(gids), jnp.asarray(data), jnp.asarray(data[qids]),
         jnp.asarray(np.where(row_mask, qids, -1)), jnp.asarray(row_mask),
@@ -102,11 +124,37 @@ def test_beam_search_shared_cache_counters_match_reference():
     assert got.hops == int(want.hops)
 
 
-def test_hash_and_sq8_raise_not_implemented():
-    data, adj, queries = _case(1, N, 8, quantize=True)
+def test_tombstones_match_reference():
+    """Deleted ids masked out of the ef-wide pool before the k cut, with
+    the same refill order as the reference."""
+    data, adj, queries = _case(2, N, 8, quantize=True)
+    tomb = np.array([3, 17, 40, -1, 41, 5], np.int32)
+    want = jsearch.knn_search(jnp.asarray(adj), jnp.asarray(data),
+                              jnp.asarray(queries), 8, 16, 0,
+                              tombstone_ids=jnp.asarray(tomb))
+    got = tsearch.knn_search(adj, data, queries, 8, 16, 0,
+                             tombstone_ids=tomb, device="cpu")
+    np.testing.assert_array_equal(got.pool_ids.numpy(),
+                                  np.asarray(want.pool_ids))
+    np.testing.assert_array_equal(got.pool_dist.numpy(),
+                                  np.asarray(want.pool_dist))
+    assert not np.isin(got.pool_ids.numpy(), tomb[tomb >= 0]).any()
+
+
+def test_sharded_and_fused_raise_not_implemented():
+    """What the port leaves to later slices raises, naming the ROADMAP
+    item: sharded serving (item 13) and the fused build (item 6)."""
+    from repro_torch.core import vamana
+    from repro_torch.serve import retrieval
+    keys = np.zeros((16, 4), np.float32)
+    p = vamana.VamanaParams(4, 2, 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+        retrieval.build_index(keys, keys, p, num_shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsearch.knn_search(adj, data, queries, 4, 8, 0, visited_impl="hash",
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsearch.knn_search(adj, data, queries, 4, 8, 0, quantize="sq8",
-                           device="cpu")
+        retrieval.build_index(keys, keys, p, build_impl="fused",
+                              device="cpu")
+    idx = retrieval.build_index(keys + np.eye(16, 4, dtype=np.float32),
+                                keys, p, batch_size=16, device="cpu")
+    for kw in (dict(routed_shards=2), dict(shard_mask=[True, False])):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+            retrieval.retrieval_attention(idx, keys[:2], top_k=2, ef=4, **kw)

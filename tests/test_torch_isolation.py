@@ -36,17 +36,23 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_cuda_source_for_every_kernel_on_the_path():
-    """Each kernel module names a CUDA entry point that csrc/ defines."""
+    """Each kernel module names a CUDA entry point that csrc/ defines, and
+    keeps a launch counter for it."""
     from repro_torch.kernels import gather_distance, l2_distance
     cu = (PKG / "kernels" / "csrc" / "distance.cu").read_text()
-    for mod, entry, body in (
+    for mod, entry, body, counter in (
             (gather_distance, "gather_distance_f32",
-             "gather_distance_kernel"),
+             "gather_distance_kernel", "LAUNCHES"),
             (l2_distance, "pairwise_distance_f32",
-             "pairwise_distance_kernel")):
-        assert f"int {entry}(" in cu and f"{body}(" in cu, entry
-        assert entry in pathlib.Path(mod.__file__).read_text()
-        assert mod.LAUNCHES >= 0
+             "pairwise_distance_kernel", "LAUNCHES"),
+            (gather_distance, "gather_distance_sq8",
+             "gather_distance_sq8_kernel", "LAUNCHES_SQ8"),
+            (l2_distance, "pairwise_distance_sq8",
+             "pairwise_distance_kernel<KIND_L2, int8_t, true>",
+             "LAUNCHES_SQ8")):
+        assert f"int {entry}(" in cu and body in cu, entry
+        assert f'"{entry}"' in pathlib.Path(mod.__file__).read_text()
+        assert getattr(mod, counter) >= 0
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
