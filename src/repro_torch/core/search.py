@@ -300,14 +300,11 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
                 share_cache: bool,
                 metric: str = "l2",
                 visited_impl: str = "dense",
-                hash_slots: int | None = None,
                 expand_width: int = 1) -> SearchResult:
     """Lockstep beam search of b queries over m graphs (one device).
 
     A ``QuantizedData`` corpus was prepared before quantization, so for
-    cosine only the queries normalize here.  ``hash_slots`` overrides the
-    hash tables' auto size per (query, graph); the shared V_delta table
-    takes m times that."""
+    cosine only the queries normalize here."""
     global HOST_SYNCS
     if visited_impl not in VISITED_IMPLS:
         raise ValueError(
@@ -340,17 +337,13 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
     hashed = visited_impl == "hash"
     if hashed:
         visited = hashset.make_tables(
-            (b, m), hash_slots or hashset.auto_slots(max_hops, width * mx),
-            device=dev)
+            (b, m), hashset.auto_slots(max_hops, width * mx), device=dev)
     else:
         visited = torch.zeros((b, m, n + 1), dtype=torch.bool, device=dev)
     if cache_has is None:
         # the V_delta union absorbs all m graphs' inserts
-        cache_slots = (
-            min(hashset.next_pow2(m * hash_slots), hashset.CACHE_SLOTS_CAP)
-            if hash_slots else
-            hashset.auto_slots(max_hops, width * mx, searches=m,
-                               cap=hashset.CACHE_SLOTS_CAP))
+        cache_slots = hashset.auto_slots(max_hops, width * mx, searches=m,
+                                         cap=hashset.CACHE_SLOTS_CAP)
         cache_d, cache_has = fresh_cache(b, n, share_cache, visited_impl,
                                          slots=cache_slots, device=dev)
     cache_hashed = cache_has.dtype != torch.bool
@@ -418,7 +411,6 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
                max_hops: int | None = None, *,
                metric: str = "l2",
                visited_impl: str = "dense",
-               hash_slots: int | None = None,
                expand_width: int = 1,
                row_mask=None,
                tombstone_ids=None,
@@ -480,7 +472,7 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
         torch.tensor([ef], dtype=torch.int32, device=dev), ep,
         ef_max=ef, max_hops=max_hops or default_max_hops(ef, expand_width),
         share_cache=False, metric=metric, visited_impl=visited_impl,
-        hash_slots=hash_slots, expand_width=expand_width)
+        expand_width=expand_width)
     pool_i, pool_d = res.pool_ids[:, 0], res.pool_dist[:, 0]
     n_comp = res.n_computed
     if quantize == "sq8":

@@ -59,14 +59,6 @@ def gather_distance_ids_plain(u, data, ids, cached, mask,
     return ref.gather_distance_ref(u, c, cached, mask & (ids >= 0), kernel)
 
 
-def gather_distance_sq8_plain(qs, qn, codes, cn, cached, mask,
-                              kernel: str = "l2"):
-    """Plain PyTorch int8 slab form: qs (b, d), qn (b,), codes (b, k, d),
-    cn (b, k)."""
-    return ref.gather_distance_adc_ref(qs, qn, codes, cn, cached, mask,
-                                       kernel)
-
-
 def gather_distance_sq8_ids_plain(qs, qn, codes, cn, ids, cached, mask,
                                   kernel: str = "l2"):
     """Plain PyTorch int8 ids form over codes (n, d) and norms (n,)."""
@@ -183,8 +175,8 @@ def gather_distance_sq8(qs, qn, codes, cn, cached, mask, *,
     codes, (b, k) f32 dequantized norms, (b, k) f32, (b, k) bool ->
     (b, k) float32."""
     if qs.device.type == "cpu":
-        return gather_distance_sq8_plain(qs, qn, codes, cn, cached, mask,
-                                         kernel)
+        return ref.gather_distance_adc_ref(qs, qn, codes, cn, cached, mask,
+                                           kernel)
     if qs.device.type != "cuda":
         raise ValueError(f"gather_distance: unsupported device {qs.device}")
     b, d = qs.shape

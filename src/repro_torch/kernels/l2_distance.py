@@ -41,12 +41,6 @@ def pairwise_distance_plain(q, x, kernel: str = "l2"):
     return ref.pairwise_distance_ref(q, x, kernel)
 
 
-def pairwise_distance_sq8_plain(qs, qn, codes, cn, kernel: str = "l2"):
-    """Plain PyTorch int8 form: qs (nq, d) = q * scale, qn (nq,), codes
-    (nx, d) int8, cn (nx,)."""
-    return ref.pairwise_distance_adc_ref(qs, qn, codes, cn, kernel)
-
-
 def _launch(entry, operands, kernel, nq, nx, d):
     """Check ``operands`` (name, tensor, dtype, shape), then launch
     ``entry`` for an (nq, nx) output over d dimensions."""
@@ -108,7 +102,7 @@ def pairwise_distance_sq8(qs, qn, codes, cn, *, kernel: str = "l2"):
     dequantized-row norms -> (nq, nx) float32."""
     global LAUNCHES_SQ8
     if qs.device.type == "cpu":
-        return pairwise_distance_sq8_plain(qs, qn, codes, cn, kernel)
+        return ref.pairwise_distance_adc_ref(qs, qn, codes, cn, kernel)
     if qs.device.type != "cuda":
         raise ValueError(f"pairwise_distance: unsupported device {qs.device}")
     nq, d = _shape2("qs", qs)

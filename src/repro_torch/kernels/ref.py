@@ -75,24 +75,3 @@ def gather_distance_adc_ref(qs, qn, codes, cn, cached=None, mask=None,
         d2 = torch.where(mask, d2, cached.to(torch.float32))
     return d2
 
-
-def _prescale(q, scale):
-    q = q.to(torch.float32)
-    return q * scale[None, :], torch.sum(q * q, dim=-1)
-
-
-def pairwise_distance_sq8_ref(q, codes, scale, cnorms, kernel: str = "l2"):
-    """(nq, d) fp32 queries against an SQ8 corpus (codes (nx, d) int8,
-    scale (d,), dequantized norms (nx,)) -> (nq, nx) f32: asymmetric
-    distance computation, the query pre-scaled once by the SQ scale."""
-    qs, qn = _prescale(q, scale)
-    return pairwise_distance_adc_ref(qs, qn, codes, cnorms, kernel)
-
-
-def gather_distance_sq8_ref(u, codes, scale, cnorms, cached=None, mask=None,
-                            kernel: str = "l2"):
-    """The int8 twin of ``gather_distance_ref``: u (b, d) fp32, codes
-    (b, k, d) int8, scale (d,), cnorms (b, k) -> (b, k) f32."""
-    qs, qn = _prescale(u, scale)
-    return gather_distance_adc_ref(qs, qn, codes, cnorms, cached, mask,
-                                   kernel)

@@ -101,7 +101,7 @@ def _int8_case(b, k, n, d, scale_one, seed, dev):
 @pytest.mark.parametrize("kernel", ["l2", "ip"])
 def test_gather_sq8_kernel_matches_plain(card, shape, scale_one, kernel):
     from repro_torch.kernels import gather_distance as gd
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     b, k, d = shape
     u, quant, ids, mask, cached = _int8_case(b, k, 300, d, scale_one, 8,
                                              card)
@@ -121,8 +121,8 @@ def test_gather_sq8_kernel_matches_plain(card, shape, scale_one, kernel):
     codes, cn = quant.codes[safe].contiguous(), quant.norms[safe].contiguous()
     got = gd.gather_distance_sq8(qs, qn, codes, cn, cached, mask,
                                  kernel=kernel)
-    _check(got, gd.gather_distance_sq8_plain(qs, qn, codes, cn, cached, mask,
-                                             kernel), scale_one)
+    _check(got, ref.gather_distance_adc_ref(qs, qn, codes, cn, cached, mask,
+                                            kernel), scale_one)
     assert torch.equal(got[~mask], cached[~mask])
 
 
@@ -131,7 +131,7 @@ def test_gather_sq8_kernel_matches_plain(card, shape, scale_one, kernel):
 @pytest.mark.parametrize("kernel", ["l2", "ip"])
 def test_pairwise_sq8_kernel_matches_plain(card, shape, scale_one, kernel):
     from repro_torch.kernels import l2_distance as l2
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     nq, nx, d = shape
     u, quant, _, _, _ = _int8_case(nq, 1, nx, d, scale_one, 9, card)
     qs, qn = ops.prescale(u, quant.scale, kernel)
@@ -139,9 +139,8 @@ def test_pairwise_sq8_kernel_matches_plain(card, shape, scale_one, kernel):
     got = l2.pairwise_distance_sq8(qs, qn, quant.codes, quant.norms,
                                    kernel=kernel)
     assert l2.LAUNCHES_SQ8 == before + 1
-    _check(got, l2.pairwise_distance_sq8_plain(qs, qn, quant.codes,
-                                               quant.norms, kernel),
-           scale_one)
+    _check(got, ref.pairwise_distance_adc_ref(qs, qn, quant.codes,
+                                              quant.norms, kernel), scale_one)
 
 
 def test_card_build_equals_cpu_build_on_integer_data(card):

@@ -100,9 +100,10 @@ def _pairwise(q, jq, tq, metric):
     ref = np.asarray(jref.pairwise_distance_sq8_ref(
         met.prepare(jnp.asarray(q)), jq.codes, jq.scale, jq.norms,
         met.kernel))
-    plain = tref.pairwise_distance_sq8_ref(
-        tmetric.resolve(metric).prepare(torch.from_numpy(q)), tq.codes,
-        tq.scale, tq.norms, met.kernel).numpy()
+    qs, qn = tops.prescale(tmetric.resolve(metric).prepare(
+        torch.from_numpy(q)), tq.scale, met.kernel)
+    plain = tref.pairwise_distance_adc_ref(qs, qn, tq.codes, tq.norms,
+                                           met.kernel).numpy()
     return got, pallas, ref, plain
 
 
@@ -128,7 +129,7 @@ def _gather_case(b, k, d, integer, metric="l2"):
 
 def _gather(u, ids, jq, tq, cached, mask, metric):
     """(port ops, reference interpret-mode Pallas, reference oracle, port
-    plain version with the reference's signature) on the gathered slab."""
+    plain version on the pre-scaled queries) on the gathered slab."""
     ti = torch.from_numpy(ids)
     codes, cn = tq.codes[ti], tq.norms[ti]
     args = (torch.from_numpy(cached), torch.from_numpy(mask))
@@ -141,9 +142,10 @@ def _gather(u, ids, jq, tq, cached, mask, metric):
     met = jmetric.resolve(metric)
     ref = np.asarray(jref.gather_distance_sq8_ref(
         met.prepare(jnp.asarray(u)), *jargs, met.kernel))
-    plain = tref.gather_distance_sq8_ref(
-        tmetric.resolve(metric).prepare(torch.from_numpy(u)), codes,
-        tq.scale, cn, *args, met.kernel).numpy()
+    qs, qn = tops.prescale(tmetric.resolve(metric).prepare(
+        torch.from_numpy(u)), tq.scale, met.kernel)
+    plain = tref.gather_distance_adc_ref(qs, qn, codes, cn, *args,
+                                         met.kernel).numpy()
     return got, pallas, ref, plain
 
 
