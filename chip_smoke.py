@@ -6,15 +6,18 @@
 Phases, each printing one JSON line; any failure ends in a non-zero exit:
 
 1. device     -- nvidia-smi name and power limit, torch/CUDA versions, TF32.
-2. build      -- nvcc build of ``src/repro_torch/kernels/csrc/distance.cu``.
+2. build      -- nvcc builds of ``src/repro_torch/kernels/csrc/distance.cu``
+                 and ``flash_attention.cu``, started together.
 3. kernels    -- each CUDA kernel (fp32 and int8 gather, fp32 and int8
-                 pairwise) against its plain PyTorch version on the card:
-                 exact on integer data (for the int8 kernels: integer keys
-                 whose every dimension reaches 127, so the SQ scale is 1),
-                 rtol 1e-5 / atol 1e-4 on gaussian data, bit-exact cache
-                 pass-through, at every shape the two paths launch each
-                 kernel with; kernel, plain and library times (median of 5
-                 timed batches, with their spread) beside the bound.
+                 pairwise, flash attention) against its plain PyTorch
+                 version on the card, at every shape the paths launch it
+                 with: the distance kernels exact on integer data (for the
+                 int8 kernels: integer keys whose every dimension reaches
+                 127, so the SQ scale is 1), rtol 1e-5 / atol 1e-4 on
+                 gaussian data, bit-exact cache pass-through; flash
+                 attention at rtol/atol 5e-4 in fp32 and 5e-2 in bf16 (the
+                 reference's own); kernel, plain and library times (median
+                 of 5 timed batches, with their spread) beside the bound.
 4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
                  in [-4, 4]) built with 4 configs on the card and on the
                  CPU: identical graphs and counters; multi == single.
@@ -44,9 +47,27 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  ip top-32 and the attention gate (mean cosine >= 0.9 at
                  ef=128), which neither index meets on this geometry
                  (PERF.md, ROADMAP queue 3).
+8. lm_exact   -- the LM substrate on gemma2_9b's smoke config (4 layers,
+                 window 32) in fp32, on the card and on the CPU: forward
+                 logits of a 48-token prompt card == CPU to 1e-4,
+                 teacher-forced ``decode_step`` == forward to 2e-2 (the
+                 reference's bound), and a ``ServeEngine`` run of 4
+                 requests on 2 slots with identical tokens on both.
+9. lm_width   -- gemma2_9b's full widths cut to one period group (a local
+                 and a global layer), fp32, B=2, S=64: forward (flash
+                 kernel) == teacher-forced decode (plain attention) to
+                 2e-2, card forward == CPU forward to 1e-3.
+10. lm_prefill -- the full 42-layer gemma2_9b in bf16 (random weights from
+                 a seeded generator on the card), forward of 1 x 8192
+                 tokens: finite logits, exactly 42 flash launches; wall
+                 seconds, tokens/s, flash ms per layer, peak memory, and a
+                 profiled second forward's device busy share.
+11. lm_serve  -- the same model behind ``ServeEngine`` (4 slots,
+                 max_seq 512): 8 requests of 32-token prompts, 32 new
+                 tokens each; tokens/s and ms per decode step.
 
-Launch counters are zeroed just before each path (main, serve) and read
-just after; every kernel of that path must have launched.
+Launch counters are zeroed just before each path (main, serve, and the LM
+phases) and read just after; every kernel of that path must have launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
@@ -55,6 +76,9 @@ device, and when ``src/repro_torch`` is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -67,6 +91,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 RTOL, ATOL = 1e-5, 1e-4        # gaussian data: summation order differs
 # One degree bucket (M_max = 32) for all four configs, so every graph of
 # the grouped build equals its single build (the random initial graph is
@@ -97,15 +122,38 @@ BLOCK = 64                     # retrieval_attention_batched block size
 # modes on an H100, flat in ef), so that a wrong int8 or hash search at
 # full width fails the run
 COSINE_RECALL_FLOOR = 0.65
+# The LM cells: gemma2_9b at its full widths (d_model 3584, 16 heads of
+# 224, GQA 16:8, d_ff 14336, vocab 256000), window 4096 on the 21 local
+# layers, attention soft-cap 50, logit soft-cap 30; random weights.
+LM_ARCH = "gemma2_9b"
+PREFILL_S = 8192           # prefill_32k's 32 x 32768 cut to 1 x 8192 (time)
+WARM_S = 256               # the prefill's warm-up forward, before counting
+WIDTH_B, WIDTH_S = 2, 64   # lm_width: one period group at full width
+EXACT_B, EXACT_S = 2, 48   # lm_exact: 48 > the smoke window 32
+SERVE_SLOTS, SERVE_MAX_SEQ = 4, 512
+SERVE_REQS, SERVE_PROMPT, SERVE_NEW = 8, 32, 32
+PROFILE_STEPS = 8          # decode steps profiled after the serve run
+# the reference's flash tolerances (tests/test_kernels.py) and cases
+FA_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+FA_CASES = [
+    dict(sq=64, sk=64, w=0, cap=0.0, off=0, causal=True),
+    dict(sq=32, sk=32, w=17, cap=0.0, off=0, causal=True),
+    dict(sq=64, sk=64, w=0, cap=30.0, off=0, causal=True),
+    dict(sq=1, sk=70, w=0, cap=0.0, off=69, causal=True),
+    dict(sq=40, sk=56, w=0, cap=0.0, off=16, causal=True),
+    dict(sq=24, sk=24, w=0, cap=0.0, off=0, causal=False),
+    dict(sq=16, sk=144, w=48, cap=50.0, off=128, causal=True),
+]
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float,
+             peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -158,10 +206,14 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
+    sources = ["distance", "flash_attention"]
     t0 = time.perf_counter()
-    _build.load("distance")
-    emit("build", source="distance.cu", seconds=time.perf_counter() - t0,
-         nvcc_seconds=_build.BUILD_SECONDS, flags=_build.NVCC_FLAGS)
+    _build.build_all(sources)
+    for name in sources:
+        _build.load(name)
+    emit("build", sources=[f"{n}.cu" for n in sources],
+         seconds=time.perf_counter() - t0, nvcc_seconds=_build.BUILD_SECONDS,
+         flags=_build.NVCC_FLAGS)
 
 
 def _data(gen, shape, integer: bool):
@@ -449,17 +501,132 @@ def _pairwise_sq8_row(l2, ops, ref, mlib, gen) -> dict:
                 path="none: no path of either package calls it")
 
 
+def _attended_pairs(sq: int, sk: int, causal: bool, window: int,
+                    q_offset: int) -> int:
+    """(query, key) pairs the flash mask lets through: its data-dependent
+    work, counted for the bound."""
+    import numpy as np
+    qpos = q_offset + np.arange(sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def _flash_shapes() -> list[tuple]:
+    """(b, h, sq, sk, dh, dtype, causal, window, softcap, q_offset) of every
+    launch the LM phases make (a local and a global layer each), and the
+    reference's own FA_CASES in both dtypes."""
+    import torch
+    from repro_torch.configs import registry
+    full = registry.get_config(LM_ARCH)
+    smoke = full.smoke()
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        out += [(2, 3, c["sq"], c["sk"], 16, dt, c["causal"], c["w"],
+                 c["cap"], c["off"]) for c in FA_CASES]
+    for cfg, b, s, dt in ((smoke, EXACT_B, EXACT_S, torch.float32),
+                          (full, WIDTH_B, WIDTH_S, torch.float32),
+                          (full, 1, WARM_S, torch.bfloat16),
+                          (full, 1, PREFILL_S, torch.bfloat16)):
+        for window in (cfg.window, 0):
+            out.append((b, cfg.n_heads, s, s, cfg.head_dim, dt, True, window,
+                        cfg.attn_softcap, 0))
+    return out
+
+
+def _flash_row(fa, gen) -> dict:
+    """The flash kernel against its plain version at every LM shape, timed
+    at the prefill's (1, 16, 8192, 224) bf16 global and local layers, with
+    SDPA at softcap 0 and no window beside the kernel at that setting."""
+    import torch
+    import torch.nn.functional as F
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    checked = []
+    for (b, h, sq, sk, dh, dt, causal, window, cap, off) in _flash_shapes():
+        q, k, v = (torch.randn((b, h, n, dh), generator=gen,
+                               device="cuda").to(dt)
+                   for n in (sq, sk, sk))
+        kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        tol = FA_TOL[name]
+        err = float((got.float() - want.float()).abs().max())
+        if not bool(torch.isfinite(got).all()) or got.dtype != dt or \
+                not torch.allclose(got.float(), want.float(), rtol=tol,
+                                   atol=tol):
+            raise AssertionError(f"flash_attention {(b, h, sq, sk, dh)} "
+                                 f"{name} {kw}: max err {err} beyond {tol}")
+        errs[name] = max(errs[name], err)
+        checked.append(dict(shape=[b, h, sq, sk, dh], dtype=name, **kw,
+                            max_abs_err=err))
+        del q, k, v, got, want
+    from repro_torch.configs import registry
+    cfg = registry.get_config(LM_ARCH)
+    cfg_h, cfg_dh = cfg.n_heads, cfg.head_dim
+    cap, window = cfg.attn_softcap, cfg.window
+    q, k, v = (torch.randn((1, cfg_h, PREFILL_S, cfg_dh), generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    nbytes = 4.0 * q.numel() * 2
+
+    def timed(window, cap, library=None):
+        kw = dict(causal=True, window=window, softcap=cap)
+        row = timed_row(lambda: fa.flash_attention(q, k, v, **kw),
+                        lambda: fa.flash_attention_plain(q, k, v, **kw),
+                        library, reps=2)
+        pairs = _attended_pairs(PREFILL_S, PREFILL_S, True, window, 0)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 4.0 * cfg_h * pairs * cfg_dh, BF16_FLOPS)
+        row["attended_pairs"] = pairs
+        return row
+
+    glob = timed(0, cap)
+    local = timed(window, cap)
+    lib = timed(0, 0.0, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    del q, k, v
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:91",
+                launches=0, max_abs_err=max(errs.values()),
+                max_abs_err_fp32=errs["float32"],
+                max_abs_err_bf16=errs["bfloat16"],
+                **{k_: glob[k_] for k_ in ("ms", "ms_spread", "plain_ms",
+                                           "plain_ms_spread", "bound_ms",
+                                           "bound_by")},
+                library_ms=lib["library_ms"],
+                library_ms_spread=lib["library_ms_spread"],
+                shape=[1, cfg_h, PREFILL_S, cfg_dh], dtype="bfloat16",
+                form="global layer: causal, softcap 50",
+                local_layer=dict(window=window, softcap=cap, **local),
+                library_setting=dict(
+                    softcap=0.0, window=0, kernel_ms=lib["ms"],
+                    kernel_ms_spread=lib["ms_spread"],
+                    bound_ms=lib["bound_ms"]),
+                library="torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True) at softcap 0 and no window: the "
+                        "nearest library call, not the same function (it "
+                        "cannot soft-cap)",
+                shapes_checked=checked)
+
+
 def phase_kernels(n_corpus: int) -> list[dict]:
     import torch
     from repro_torch.core import metric as mlib
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_distance as gd
     from repro_torch.kernels import l2_distance as l2
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = [_pairwise_row(l2, ops, mlib, gen, n_corpus),
-           _gather_row(gd, gen, n_corpus),
-           _gather_sq8_row(gd, ops, ref, gen),
-           _pairwise_sq8_row(l2, ops, ref, mlib, gen)]
+    out = []
+    if n_corpus:
+        out = [_pairwise_row(l2, ops, mlib, gen, n_corpus),
+               _gather_row(gd, gen, n_corpus),
+               _gather_sq8_row(gd, ops, ref, gen),
+               _pairwise_sq8_row(l2, ops, ref, mlib, gen)]
+    out.append(_flash_row(fa, gen))
     torch.cuda.empty_cache()
     for row in out:
         emit("kernel", **row)
@@ -768,6 +935,30 @@ def phase_serve(counters: dict, data: dict, metric: str) -> dict:
     return launches
 
 
+def device_time(prof, top: int = 8) -> tuple[float, dict, int]:
+    """Seconds the device was busy in a profile (the union of its kernel
+    and copy intervals, so overlapping or nested records count once), the
+    ``top`` device records by time in ms, and the kernel launch count."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda
+                   and e.name != "Command Buffer Full")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == cuda:
+            per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    return (busy / 1e6, dict(sorted(per.items(), key=lambda kv: -kv[1])[:top]),
+            launches)
+
+
 def phase_profile(n: int) -> None:
     """torch.profiler over one grouped build of ``n`` points: the device's
     busy share of the wall time and the ops that take the host's time."""
@@ -786,16 +977,255 @@ def phase_profile(n: int) -> None:
         vamana.build_multi_vamana(data, ps, batch_size=256)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    device_us = sum(getattr(e, "self_device_time_total", None)
-                    or getattr(e, "self_cuda_time_total", 0) for e in events)
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    print(events.table(sort_by="self_cpu_time_total", row_limit=20),
-          flush=True)
-    emit("profile", n=n, wall_s=wall, device_busy_s=device_us / 1e6,
-         device_idle_share=1.0 - device_us / 1e6 / wall,
+    busy, _, launches = device_time(prof)
+    print(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                    row_limit=20), flush=True)
+    emit("profile", n=n, wall_s=wall, device_busy_s=busy,
+         device_idle_share=1.0 - busy / wall,
          cuda_launches=launches, hops=search.HOST_SYNCS - syncs,
          note="wall time includes the profiler's own overhead")
+
+
+def _assert_close(name: str, got, want, tol: float) -> float:
+    import torch
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: max err {err} beyond {tol}")
+    return err
+
+
+def _teacher_forced(M, model, toks):
+    """Logits of decode_step fed the tokens one by one (plain attention)."""
+    import torch
+    cache = M.init_cache(model, toks.shape[0], toks.shape[1])
+    return torch.cat([M.decode_step(model, toks[:, t:t + 1], cache, t)[0]
+                      for t in range(toks.shape[1])], dim=1)
+
+
+def phase_lm_exact(counters: dict) -> dict:
+    """gemma2_9b's smoke config in fp32 on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine
+    cfg = registry.get_config(LM_ARCH).smoke()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (EXACT_B, EXACT_S), generator=gen)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).numpy()
+               .astype(np.int32) for n in (10, 2, 5, 7)]
+    zero_counts(counters)
+    full = M.forward(card, toks.cuda())
+    dec = _teacher_forced(M, card, toks.cuda())
+    tokens = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        eng = engine.ServeEngine(model, cfg, batch_slots=2, max_seq=64,
+                                 device=dev)
+        reqs = eng.run([engine.Request(rid=i, prompt=p, max_new=8)
+                        for i, p in enumerate(prompts)])
+        tokens[dev] = [r.out for r in reqs]
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    err_cpu = _assert_close("lm_exact forward card vs CPU", full.cpu(),
+                            M.forward(cpu, toks), 1e-4)
+    err_dec = _assert_close("lm_exact decode vs forward", dec, full, 2e-2)
+    emit("lm_exact", arch=cfg.name, layers=cfg.n_layers, window=cfg.window,
+         batch=EXACT_B, prompt=EXACT_S, forward_card_vs_cpu=err_cpu,
+         decode_vs_forward=err_dec, engine_tokens=tokens,
+         engine_identical=tokens["cuda"] == tokens["cpu"], launches=launches)
+    if tokens["cuda"] != tokens["cpu"]:
+        raise AssertionError(f"lm_exact engine tokens differ: {tokens}")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"lm_exact: {launches['flash_attention']} "
+                             f"flash launches, expected {cfg.n_layers}")
+    return launches
+
+
+def phase_lm_width(counters: dict) -> dict:
+    """gemma2_9b's full widths, one period group (local + global), fp32."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    full_cfg = registry.get_config(LM_ARCH)
+    cfg = dataclasses.replace(full_cfg, n_layers=full_cfg.period)
+    card = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(11),
+                         device="cuda")
+    cpu = copy.deepcopy(card).to("cpu")
+    toks = torch.randint(0, cfg.vocab, (WIDTH_B, WIDTH_S),
+                         generator=torch.Generator().manual_seed(12))
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    full = M.forward(card, toks.cuda())
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    dec = _teacher_forced(M, card, toks.cuda())
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    t0 = time.perf_counter()
+    want = M.forward(cpu, toks)
+    cpu_s = time.perf_counter() - t0
+    err_dec = _assert_close("lm_width decode vs forward", dec, full, 2e-2)
+    err_cpu = _assert_close("lm_width forward card vs CPU", full.cpu(), want,
+                            1e-3)
+    emit("lm_width", arch=LM_ARCH, layers=cfg.n_layers,
+         windows=[k.window for k in M.layer_plan(cfg)], d_model=cfg.d_model,
+         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         vocab=cfg.vocab, batch=WIDTH_B, seq=WIDTH_S, dtype="float32",
+         decode_vs_forward=err_dec, forward_card_vs_cpu=err_cpu,
+         card_forward_s=fwd_s, cpu_forward_s=cpu_s, launches=launches,
+         reduced=f"{cfg.n_layers} of {full_cfg.n_layers} layers")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"lm_width: {launches['flash_attention']} "
+                             f"flash launches, expected {cfg.n_layers}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _flash_events():
+    """CUDA events around each flash kernel call of the LM forward (the
+    wrapper behind ``kernels.ops``), for its device time per layer."""
+    import torch
+    from repro_torch.kernels import ops
+    real = ops._fa
+    events = []
+
+    class Timed:
+        @staticmethod
+        def flash_attention(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real.flash_attention(*a, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+
+    ops._fa = Timed
+    try:
+        yield events
+    finally:
+        ops._fa = real
+
+
+def phase_lm_prefill(counters: dict):
+    """The full 42-layer gemma2_9b in bf16: forward of 1 x PREFILL_S."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    cfg = registry.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(13),
+                          device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    M.forward(model, torch.randint(0, cfg.vocab, (1, WARM_S), generator=gen,
+                                   device="cuda"))
+    toks = torch.randint(0, cfg.vocab, (1, PREFILL_S), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    with _flash_events() as events:
+        t0 = time.perf_counter()
+        logits = M.forward(model, toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    flash_ms = [s.elapsed_time(e) for s, e in events]
+    kinds = [model.kind(i).window for i in range(cfg.n_layers)]
+    finite = bool(torch.isfinite(logits).all())
+    shape_ok = tuple(logits.shape) == (1, PREFILL_S, cfg.vocab)
+    del logits
+    # a second forward under the profiler: device busy share, top kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        M.forward(model, toks)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, top, n_launch = device_time(prof)
+    local = [ms for ms, w in zip(flash_ms, kinds) if w]
+    glob = [ms for ms, w in zip(flash_ms, kinds) if not w]
+    emit("lm_prefill", arch=LM_ARCH, layers=cfg.n_layers, params=n_params,
+         dtype="bfloat16", batch=1, seq=PREFILL_S, init_s=init_s,
+         wall_s=wall, tokens_per_s=PREFILL_S / wall,
+         flash_ms_per_layer=flash_ms,
+         flash_ms_local_mean=sum(local) / max(len(local), 1),
+         flash_ms_global_mean=sum(glob) / max(len(glob), 1),
+         flash_share_of_wall=sum(flash_ms) / 1e3 / wall,
+         peak_memory_bytes=peak, finite=finite, shape_ok=shape_ok,
+         launches=launches, profiled_wall_s=prof_wall,
+         device_busy_s=busy, device_idle_share=1.0 - busy / prof_wall,
+         cuda_launches=n_launch, top_device_ms=top,
+         reduced=f"1 x {PREFILL_S} tokens of prefill_32k's 32 x 32768 "
+                 f"(time); random weights")
+    if not (finite and shape_ok):
+        raise AssertionError(f"lm_prefill: finite={finite} "
+                             f"shape_ok={shape_ok}")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"lm_prefill: {launches['flash_attention']} "
+                             f"flash launches, expected {cfg.n_layers}")
+    return launches, model
+
+
+def phase_lm_serve(counters: dict, model) -> dict:
+    """The full bf16 model behind ServeEngine: SERVE_REQS requests."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import engine
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(15)
+    prompts = [torch.randint(0, cfg.vocab, (SERVE_PROMPT,), generator=gen)
+               .numpy().astype(np.int32) for _ in range(SERVE_REQS)]
+    eng = engine.ServeEngine(model, cfg, batch_slots=SERVE_SLOTS,
+                             max_seq=SERVE_MAX_SEQ)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    reqs = eng.run([engine.Request(rid=i, prompt=p, max_new=SERVE_NEW)
+                    for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    calls = eng.decode_calls
+    new = sum(len(r.out) for r in reqs)
+    ok = all(r.done and len(r.out) == SERVE_NEW
+             and all(0 <= t < cfg.vocab for t in r.out) for r in reqs)
+    # a few more decode steps of the full batch under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    tok = np.ones((SERVE_SLOTS, 1), np.int32)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            eng._decode(tok, SERVE_MAX_SEQ - 1 - i)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, top, n_launch = device_time(prof)
+    emit("lm_serve", arch=LM_ARCH, dtype="bfloat16", kv_dtype="float32",
+         slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, requests=SERVE_REQS,
+         prompt=SERVE_PROMPT, max_new=SERVE_NEW, wall_s=wall,
+         new_tokens=new, tokens_per_s=new / wall,
+         decode_calls=calls, ms_per_decode_step=wall * 1e3 / calls,
+         prompt_tokens=SERVE_REQS * SERVE_PROMPT,
+         first_tokens=[r.out[:4] for r in reqs], all_finished=ok,
+         launches=launches, profiled_steps=PROFILE_STEPS,
+         profiled_ms_per_step=prof_wall * 1e3 / PROFILE_STEPS,
+         device_busy_ms_per_step=busy * 1e3 / PROFILE_STEPS,
+         device_idle_share=1.0 - busy / prof_wall,
+         cuda_launches_per_step=n_launch / PROFILE_STEPS,
+         top_device_ms=top)
+    if not ok:
+        raise AssertionError("lm_serve: a request did not finish with "
+                             "in-vocab tokens")
+    return launches
 
 
 def main() -> int:
@@ -804,6 +1234,8 @@ def main() -> int:
                     help="corpus size of the main path (default 50k)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="only profile one grouped build of N points")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="only the flash kernel's checks and the LM phases")
     args = ap.parse_args()
 
     import torch
@@ -811,29 +1243,39 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import resolve_device
-    from repro_torch.kernels import gather_distance, l2_distance
+    from repro_torch.kernels import (flash_attention, gather_distance,
+                                     l2_distance)
     resolve_device("cuda")           # pins TF32 off for the whole run
     counters = {"gather_distance": (gather_distance, "LAUNCHES"),
                 "pairwise_distance": (l2_distance, "LAUNCHES"),
                 "gather_distance_sq8": (gather_distance, "LAUNCHES_SQ8"),
-                "pairwise_distance_sq8": (l2_distance, "LAUNCHES_SQ8")}
+                "pairwise_distance_sq8": (l2_distance, "LAUNCHES_SQ8"),
+                "flash_attention": (flash_attention, "LAUNCHES")}
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
     if args.profile:
         phase_profile(args.profile)
         return 0
-    kernels = phase_kernels(args.n)
-    phase_exact()
-    by_path = {"main": phase_main(args.n, counters)}
-    phase_serve_exact()
-    data = serve_data()
-    # the index's default ip metric, then cosine on the same cache: on this
-    # geometry the raw-ip graph traps every search near its entry, in the
-    # reference as in the port (PERF.md, ROADMAP queue 3)
-    by_path["serve_ip"] = phase_serve(counters, data, "ip")
-    by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
-    del data
+    kernels = phase_kernels(0 if args.lm_only else args.n)
+    by_path = {}
+    if not args.lm_only:
+        phase_exact()
+        by_path["main"] = phase_main(args.n, counters)
+        phase_serve_exact()
+        data = serve_data()
+        # the index's default ip metric, then cosine on the same cache: on
+        # this geometry the raw-ip graph traps every search near its entry,
+        # in the reference as in the port (PERF.md, ROADMAP queue 3)
+        by_path["serve_ip"] = phase_serve(counters, data, "ip")
+        by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
+        del data
+        torch.cuda.empty_cache()
+    by_path["lm_exact"] = phase_lm_exact(counters)
+    by_path["lm_width"] = phase_lm_width(counters)
+    by_path["lm_prefill"], model = phase_lm_prefill(counters)
+    by_path["lm_serve"] = phase_lm_serve(counters, model)
+    del model
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}

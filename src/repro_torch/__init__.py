@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of FastPGT's parameter-estimation path.
+"""PyTorch + CUDA port of FastPGT's parameter-estimation path, its
+retrieval serving, and the LM substrate's prefill and decode serving.
 
 Mirrors ``repro``'s module layout (``repro_torch/core/search.py`` ↔
 ``repro/core/search.py``) and never imports jax or the ``repro``

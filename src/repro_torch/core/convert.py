@@ -3,7 +3,8 @@
 A ``repro`` ``BuildResult`` exported with ``np.asarray`` on its arrays
 (``g.ids``, ``g.dist``) plus its plain fields becomes the port's
 ``BuildResult``, and a ``repro`` ``RetrievalIndex`` the port's, so a graph
-or an index built by either package can be searched by the other.
+or an index built by either package can be searched by the other.  A
+``repro`` LM parameter tree becomes the port's ``models.model.LM``.
 Nothing here imports the reference.
 """
 from __future__ import annotations
@@ -12,10 +13,12 @@ import numpy as np
 import torch
 
 from repro_torch import as_tensor, resolve_device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.counters import BuildCounters
 from repro_torch.core.graph import MultiGraph
 from repro_torch.core.vamana import BuildResult, VamanaParams
+from repro_torch.models import model as model_lib
 from repro_torch.serve.retrieval import RetrievalIndex
 
 
@@ -78,3 +81,48 @@ def retrieval_index_from_numpy(graph_ids, keys, values, search_keys,
         entry=int(entry), params=VamanaParams(params.L, params.M,
                                               params.alpha),
         metric=metric, quantize=quantize, quant=quant)
+
+
+def lm_params_from_numpy(tree: dict, cfg: ArchConfig,
+                         device: "str | torch.device" = "cuda",
+                         dtype: torch.dtype = torch.float32
+                         ) -> "model_lib.LM":
+    """A reference ``init_params`` tree (NumPy leaves) -> the port's LM.
+
+    The reference stacks each period group's sublayers into (n_groups, ...)
+    leaves under ``blocks/sub{j}``; leaf ``[g]`` becomes layer
+    ``g * period + j``.  Every weight keeps its layout; values are cast to
+    ``dtype``.  The tree must hold exactly the port's parameters."""
+    dev = resolve_device(device)
+    model = model_lib.init_params(cfg, None, device=dev, dtype=dtype)
+    done: set[str] = set()
+
+    def put(name: str, param: torch.Tensor, arr) -> None:
+        a = np.array(arr, dtype=np.float32)
+        if tuple(a.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: reference shape {a.shape}, port "
+                             f"shape {tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(a))
+        done.add(name)
+
+    for pname, param in model.embed.items():
+        put(f"embed/{pname}", param, tree["embed"][pname])
+    put("final_norm/scale", model.final_norm["scale"],
+        tree["final_norm"]["scale"])
+    period = cfg.period
+    for i, layer in enumerate(model.layers):
+        g, j = divmod(i, period)
+        sub = tree["blocks"][f"sub{j}"]
+        for mod, params in layer.items():
+            for pname, param in params.items():
+                put(f"blocks/sub{j}/{mod}/{pname}", param,
+                    sub[mod][pname][g])
+    want = {f"{top}/{k}" for top in ("embed", "final_norm")
+            for k in tree[top]}
+    want |= {f"blocks/{s}/{m}/{k}" for s, sub in tree["blocks"].items()
+             for m, leaves in sub.items() for k in leaves}
+    if want != done:
+        raise ValueError(f"reference leaves without a port parameter: "
+                         f"{sorted(want - done)}")
+    return model

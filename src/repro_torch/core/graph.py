@@ -18,6 +18,9 @@ from repro_torch.kernels import ops
 
 INVALID = -1
 INF = float("inf")
+# shard placement policies of the reference's partition (graph.py:160);
+# the sharded half is not ported yet (ROADMAP queue 1, item 13)
+ASSIGNMENTS = ("chunked", "random", "kmeans")
 
 
 @dataclasses.dataclass

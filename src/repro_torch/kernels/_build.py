@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -56,6 +57,12 @@ def build(name: str) -> pathlib.Path:
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     return out
+
+
+def build_all(names: list[str]) -> None:
+    """Compile several sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,109 @@
+"""Flash attention: (b, h, sq, dh) x (b, h, sk, dh) -> (b, h, sq, dh).
+
+Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
+flash_attention`` (``_fa_kernel``), which the LM substrate's full-sequence
+forward (the prefill) calls once per attention layer.  It computes
+attention with a causal mask, a sliding window, the logit soft-cap
+``softcap * tanh(x / softcap)`` and ``q_offset``, by online softmax with the
+finite -1e30 sentinel; fully masked rows give 0.  Heads must already be
+GQA-repeated.  The CUDA kernel is ``csrc/flash_attention.cu::
+flash_attention_kernel``: bound by operations, a SIMT kernel with 64 query
+rows per block, 32-key steps staged in shared memory as fp32, and the
+running max, sum and output rows in registers; see the source note there.
+fp32 and bf16 inputs (fp32 accumulation), dh up to 256.
+
+A CPU tensor takes the plain PyTorch version below, with the reference's
+own split (``repro/kernels/ops.py:168-177``): the chunked form when
+sk > 1024, else the dense form.  A CUDA tensor launches the kernel or
+raises.  ``LAUNCHES`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+LAUNCHES = 0
+MAX_DH = 256
+_ENTRIES = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, scale: float | None = None,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version (the CPU path and the card-side yardstick)."""
+    fn = (ref.flash_attention_chunked if k.shape[2] > 1024
+          else ref.flash_attention_ref)
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+              scale=scale, q_offset=q_offset)
+
+
+def _entry(dtype: torch.dtype):
+    fn = getattr(_build.load("flash_attention"), _ENTRIES[dtype])
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, f, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v):
+    if q.dtype not in _ENTRIES:
+        raise TypeError(f"flash_attention: dtype {q.dtype} (the kernel "
+                        f"takes float32 or bfloat16)")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: expected q (b, h, sq, dh) and "
+                         f"k, v (b, h, sk, dh), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, dh = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, h, dh):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
+                         f"match q {tuple(q.shape)} (GQA-repeat the heads "
+                         f"first)")
+    if not 1 <= dh <= MAX_DH:
+        raise ValueError(f"flash_attention: dh={dh} outside [1, {MAX_DH}]")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention: b*h={b * h} exceeds the grid's "
+                         f"65535 slices")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """(b, h, sq, dh), (b, h, sk, dh), (b, h, sk, dh) -> (b, h, sq, dh) in
+    q's dtype; scale defaults to 1/sqrt(dh)."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v)
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    s = (1.0 / (dh ** 0.5)) if scale is None else float(scale)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _entry(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b * h, sq, sk, dh, s, int(bool(causal)), int(window),
+            float(softcap), int(q_offset), stream)
+    _build.check(err, _ENTRIES[q.dtype])
+    LAUNCHES += 1
+    return out

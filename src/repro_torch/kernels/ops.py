@@ -1,6 +1,6 @@
-"""The metric boundary in front of the distance kernels.
+"""The metric boundary in front of the distance kernels, and attention.
 
-Port of ``repro/kernels/ops.py:44-161``: cosine unit-normalizes its inputs
+Port of ``repro/kernels/ops.py:44-185``: cosine unit-normalizes its inputs
 here so the kernels only see the "l2" and "ip" forms (the int8 forms
 normalize only the queries: the codes quantize an already prepared corpus,
 and each call pre-scales its queries by the SQ scale once), and absent
@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import metric as metric_lib
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gather_distance as _gd
 from repro_torch.kernels import l2_distance as _l2
 
@@ -113,3 +114,17 @@ def gather_distance_q_ids(u, quant: metric_lib.QuantizedData, ids,
     return _gd.gather_distance_sq8_ids(qs, qn, quant.codes, quant.norms,
                                        ids.to(torch.int32).contiguous(),
                                        cached, mask, kernel=met.kernel)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """(b, h, sq, dh) x (b, h, sk, dh) -> (b, h, sq, dh).
+
+    Heads must already be GQA-repeated to match q's head count.  A CUDA
+    tensor launches the flash kernel (which masks its own ragged edges, so
+    nothing is padded); a CPU tensor takes the reference's own split, the
+    chunked plain form when sk > 1024, else the dense one."""
+    return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, window=window, softcap=softcap,
+                               scale=scale, q_offset=q_offset)

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the distance kernels.
+"""Plain PyTorch versions of the distance and attention kernels.
 
-Port of ``repro/kernels/ref.py:14-140``: each function defines the semantics
+Port of ``repro/kernels/ref.py:14-267``: each function defines the semantics
 its CUDA kernel must match, runs as the CPU path of the wrapper, and is the
 yardstick the kernel is checked against on the card.
 """
@@ -75,3 +75,92 @@ def gather_distance_adc_ref(qs, qn, codes, cn, cached=None, mask=None,
         d2 = torch.where(mask, d2, cached.to(torch.float32))
     return d2
 
+
+
+# ------------------------------------------------------ flash attention ---
+# Port of repro/kernels/ref.py:150-267: the dense reference and the chunked
+# online-softmax form, the plain versions of csrc/flash_attention.cu.
+
+def _window_mask(sq: int, sk: int, q_off: int, causal: bool, window: int,
+                 device=None) -> torch.Tensor:
+    """Boolean (sq, sk) mask; True = attend."""
+    qi = q_off + torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= ki <= qi
+    if window > 0:
+        m &= ki > qi - window
+    return m
+
+
+def flash_attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
+                            softcap: float = 0.0, scale: float | None = None,
+                            q_offset: int = 0, chunk: int = 1024
+                            ) -> torch.Tensor:
+    """Online softmax over KV chunks: (b, h, sq, dh) x (b, h, sk, dh).
+
+    The memory-bounded plain path for long sequences (the reference takes
+    it for sk > 1024).  Scales q before the dot, as the reference's chunked
+    form does, and masks with the finite -1e30 sentinel."""
+    orig_dtype = q.dtype
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    s = (1.0 / (dh ** 0.5)) if scale is None else scale
+    chunk = min(chunk, sk)
+    q32 = q.to(torch.float32) * s
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    for j0 in range(0, sk, chunk):
+        kj = k[:, :, j0:j0 + chunk].to(torch.float32)
+        vj = v[:, :, j0:j0 + chunk].to(torch.float32)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q32, kj)
+        if softcap > 0.0:
+            logits = softcap * torch.tanh(logits / softcap)
+        kpos = j0 + torch.arange(kj.shape[2], device=q.device)
+        mask = (kpos[None, :] < sk).expand(sq, -1)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window > 0:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        logits = torch.where(mask, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vj)
+        m = m_new
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out.to(orig_dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, scale: float | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Dense reference attention.
+
+    q (b, h, sq, dh); k, v (b, h, sk, dh), heads already GQA-repeated.
+    Query i attends keys <= q_offset + i when causal, and keys in
+    (q_offset + i - window, q_offset + i] when window > 0; logits are
+    soft-capped when softcap > 0; scale defaults to 1/sqrt(dh).  Fully
+    masked rows give 0 (softmax over -inf, NaN mapped to 0).  Returns
+    (b, h, sq, dh) in q's dtype."""
+    orig_dtype = q.dtype
+    q = q.to(torch.float32)
+    k = k.to(torch.float32)
+    v = v.to(torch.float32)
+    dh = q.shape[-1]
+    s = (1.0 / (dh ** 0.5)) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * s
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    m = _window_mask(q.shape[2], k.shape[2], q_offset, causal, window,
+                     device=q.device)
+    logits = torch.where(m, logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v)
+    return out.to(orig_dtype)

@@ -1,10 +1,13 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card,
+and the LM on the card against the LM on the CPU.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside the
 fixture, never at import).  Run on a GPU machine with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-Exact on integer-valued data; rtol 1e-5 / atol 1e-4 on gaussian data,
-where the kernels sum in another order than the plain versions.
+Distance kernels: exact on integer-valued data; rtol 1e-5 / atol 1e-4 on
+gaussian data, where the kernels sum in another order than the plain
+versions.  Flash attention: rtol/atol 5e-4 in fp32 and 5e-2 in bf16, the
+reference's own; the LM card against CPU: 1e-4 (full fp32, TF32 off).
 """
 import numpy as np
 import pytest
@@ -177,3 +180,96 @@ def test_card_serving_equals_cpu_on_integer_data(card):
         assert int(r_gpu.n_computed) == int(r_cpu.n_computed)
         assert r_gpu.hops == r_cpu.hops
         torch.testing.assert_close(o_gpu.cpu(), o_cpu, rtol=1e-5, atol=1e-5)
+
+
+FA_CASES = [
+    dict(sq=64, sk=64, w=0, cap=0.0, off=0, causal=True),
+    dict(sq=32, sk=32, w=17, cap=0.0, off=0, causal=True),
+    dict(sq=64, sk=64, w=0, cap=30.0, off=0, causal=True),
+    dict(sq=1, sk=70, w=0, cap=0.0, off=69, causal=True),
+    dict(sq=40, sk=56, w=0, cap=0.0, off=16, causal=True),
+    dict(sq=24, sk=24, w=0, cap=0.0, off=0, causal=False),
+    dict(sq=16, sk=144, w=48, cap=50.0, off=128, causal=True),
+    dict(sq=300, sk=300, w=100, cap=50.0, off=0, causal=True),
+    dict(sq=4, sk=8, w=3, cap=0.0, off=18, causal=True),    # all masked
+]
+# the reference's flash tolerances (tests/test_kernels.py)
+FA_DTYPES = {"float32": (torch.float32, 5e-4),
+             "bfloat16": (torch.bfloat16, 5e-2)}
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("dh", [16, 32, 224, 50])
+@pytest.mark.parametrize("dtype", list(FA_DTYPES))
+def test_flash_kernel_matches_plain(card, case, dh, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    dt, tol = FA_DTYPES[dtype]
+    r = np.random.default_rng(case["sq"] + case["sk"] + dh)
+    q, k, v = (torch.from_numpy(r.normal(size=(2, 3, n, dh)).astype(
+        np.float32)).to(card).to(dt)
+        for n in (case["sq"], case["sk"], case["sk"]))
+    kw = dict(causal=case["causal"], window=case["w"], softcap=case["cap"],
+              q_offset=case["off"])
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_long_keys_bf16(card):
+    """dh=224 bf16 over 2100 keys (the plain side takes the chunked form),
+    local and global layers as gemma2 runs them."""
+    from repro_torch.kernels import flash_attention as fa
+    r = np.random.default_rng(224)
+    q, k, v = (torch.from_numpy(r.normal(size=(1, 4, 2100, 224)).astype(
+        np.float32)).to(card).to(torch.bfloat16) for _ in range(3))
+    for window in (512, 0):
+        kw = dict(causal=True, window=window, softcap=50.0)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                                   atol=5e-2)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 2, 8, 16), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           q, q)
+    with pytest.raises(ValueError, match="dh"):
+        z = torch.zeros((1, 2, 8, 300), device=card)
+        fa.flash_attention(z, z, z)
+    with pytest.raises(TypeError, match="dtype"):
+        h = q.half()
+        fa.flash_attention(h, h, h)
+
+
+def test_card_lm_equals_cpu_lm(card):
+    """gemma2's smoke config: card forward (flash kernel) == CPU forward
+    to 1e-4, and the engine's tokens are identical."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine
+    cfg = registry.get_config("gemma2_9b").smoke()
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    toks = torch.randint(0, cfg.vocab, (2, 48),
+                         generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(M.forward(gpu, toks.to(card)).cpu(),
+                               M.forward(cpu, toks), rtol=1e-4, atol=1e-4)
+    prompts = [np.arange(n, dtype=np.int32) * 7 % cfg.vocab
+               for n in (9, 3, 5)]
+    outs = {}
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        eng = engine.ServeEngine(model, cfg, batch_slots=2, max_seq=32,
+                                 device=dev)
+        outs[dev] = [r.out for r in eng.run(
+            [engine.Request(rid=i, prompt=p, max_new=4)
+             for i, p in enumerate(prompts)])]
+    assert outs["cuda"] == outs["cpu"]

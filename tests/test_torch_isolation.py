@@ -55,6 +55,23 @@ def test_cuda_source_for_every_kernel_on_the_path():
         assert getattr(mod, counter) >= 0
 
 
+def test_flash_attention_source_defines_the_wrapper_entry_points():
+    """The flash wrapper names entry points that flash_attention.cu defines
+    (one per dtype), builds that source, and keeps its launch counter."""
+    from repro_torch.kernels import flash_attention
+    cu = (PKG / "kernels" / "csrc" / "flash_attention.cu").read_text()
+    wrapper = pathlib.Path(flash_attention.__file__).read_text()
+    assert "flash_attention_kernel" in cu
+    assert set(flash_attention._ENTRIES.values()) == {
+        "flash_attention_f32", "flash_attention_bf16"}
+    for entry in flash_attention._ENTRIES.values():
+        assert f"int {entry}(" in cu, entry
+        assert f'"{entry}"' in wrapper, entry
+    assert '_build.load("flash_attention")' in wrapper
+    assert "LAUNCHES += 1" in wrapper
+    assert isinstance(flash_attention.LAUNCHES, int)
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.core import knng, search, vamana
     from repro_torch.core.tuner import estimator
@@ -70,6 +87,26 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                           [vamana.VamanaParams(8, 4, 1.0)]),
         lambda: search.knn_search(gids, data, data[:2], 2, 4, 0),
         lambda: knng.exact_knn(data, data[:2], 2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    """models.model, the converter and ServeEngine default to the card."""
+    from repro_torch.configs import registry
+    from repro_torch.core import convert
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    cfg = registry.get_config("granite_3_8b").smoke()
+    cpu = model.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: model.init_params(cfg, torch.Generator().manual_seed(0)),
+        lambda: convert.lm_params_from_numpy({}, cfg),
+        lambda: engine.ServeEngine(cpu, cfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
