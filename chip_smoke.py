@@ -15,9 +15,11 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  int8 kernels: integer keys whose every dimension reaches
                  127, so the SQ scale is 1), rtol 1e-5 / atol 1e-4 on
                  gaussian data, bit-exact cache pass-through; flash
-                 attention at rtol/atol 5e-4 in fp32 and 5e-2 in bf16 (the
-                 reference's own); kernel, plain and library times (median
-                 of 5 timed batches, with their spread) beside the bound.
+                 attention at rtol/atol 5e-4 in fp32 (the reference's own)
+                 and within one bf16 rounding in bf16 (rtol 2^-7, atol
+                 1e-3), also in fp32 at the prefill's shape; kernel, plain
+                 and library times (median of 5 timed batches, with their
+                 spread) beside the bound.
 4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
                  in [-4, 4]) built with 4 configs on the card and on the
                  CPU: identical graphs and counters; multi == single.
@@ -133,8 +135,13 @@ EXACT_B, EXACT_S = 2, 48   # lm_exact: 48 > the smoke window 32
 SERVE_SLOTS, SERVE_MAX_SEQ = 4, 512
 SERVE_REQS, SERVE_PROMPT, SERVE_NEW = 8, 32, 32
 PROFILE_STEPS = 8          # decode steps profiled after the serve run
-# the reference's flash tolerances (tests/test_kernels.py) and cases
-FA_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+# Flash tolerances as (rtol, atol).  fp32: the reference's 5e-4
+# (tests/test_kernels.py).  bf16: the kernel and its plain version both
+# accumulate in fp32 from the same bf16 inputs and round the output once,
+# so they differ by at most one bf16 ulp (2^-7 of the value); the
+# reference's 5e-2 would exceed a typical output at sk = 8192 (~0.02).
+FA_TOL = {"float32": (5e-4, 5e-4), "bfloat16": (2.0 ** -7, 1e-3)}
+# the reference's own flash cases
 FA_CASES = [
     dict(sq=64, sk=64, w=0, cap=0.0, off=0, causal=True),
     dict(sq=32, sk=32, w=17, cap=0.0, off=0, causal=True),
@@ -208,9 +215,7 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
     sources = ["distance", "flash_attention"]
     t0 = time.perf_counter()
-    _build.build_all(sources)
-    for name in sources:
-        _build.load(name)
+    _build.load_all(sources)
     emit("build", sources=[f"{n}.cu" for n in sources],
          seconds=time.perf_counter() - t0, nvcc_seconds=_build.BUILD_SECONDS,
          flags=_build.NVCC_FLAGS)
@@ -514,8 +519,10 @@ def _attended_pairs(sq: int, sk: int, causal: bool, window: int,
 
 def _flash_shapes() -> list[tuple]:
     """(b, h, sq, sk, dh, dtype, causal, window, softcap, q_offset) of every
-    launch the LM phases make (a local and a global layer each), and the
-    reference's own FA_CASES in both dtypes."""
+    launch the LM phases make (a local and a global layer each), the
+    reference's own FA_CASES in both dtypes, and the prefill's shape in
+    fp32 too: there the window binds across many q blocks, and fp32 holds
+    the kernel to 5e-4 rather than to a bf16 rounding."""
     import torch
     from repro_torch.configs import registry
     full = registry.get_config(LM_ARCH)
@@ -527,7 +534,8 @@ def _flash_shapes() -> list[tuple]:
     for cfg, b, s, dt in ((smoke, EXACT_B, EXACT_S, torch.float32),
                           (full, WIDTH_B, WIDTH_S, torch.float32),
                           (full, 1, WARM_S, torch.bfloat16),
-                          (full, 1, PREFILL_S, torch.bfloat16)):
+                          (full, 1, PREFILL_S, torch.bfloat16),
+                          (full, 1, PREFILL_S, torch.float32)):
         for window in (cfg.window, 0):
             out.append((b, cfg.n_heads, s, s, cfg.head_dim, dt, True, window,
                         cfg.attn_softcap, 0))
@@ -551,13 +559,14 @@ def _flash_row(fa, gen) -> dict:
         want = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         name = str(dt).split(".")[1]
-        tol = FA_TOL[name]
+        rtol, atol = FA_TOL[name]
         err = float((got.float() - want.float()).abs().max())
         if not bool(torch.isfinite(got).all()) or got.dtype != dt or \
-                not torch.allclose(got.float(), want.float(), rtol=tol,
-                                   atol=tol):
+                not torch.allclose(got.float(), want.float(), rtol=rtol,
+                                   atol=atol):
             raise AssertionError(f"flash_attention {(b, h, sq, sk, dh)} "
-                                 f"{name} {kw}: max err {err} beyond {tol}")
+                                 f"{name} {kw}: max err {err} beyond rtol "
+                                 f"{rtol}, atol {atol}")
         errs[name] = max(errs[name], err)
         checked.append(dict(shape=[b, h, sq, sk, dh], dtype=name, **kw,
                             max_abs_err=err))
@@ -604,6 +613,8 @@ def _flash_row(fa, gen) -> dict:
                 library_setting=dict(
                     softcap=0.0, window=0, kernel_ms=lib["ms"],
                     kernel_ms_spread=lib["ms_spread"],
+                    plain_ms=lib["plain_ms"],
+                    plain_ms_spread=lib["plain_ms_spread"],
                     bound_ms=lib["bound_ms"]),
                 library="torch.nn.functional.scaled_dot_product_attention("
                         "is_causal=True) at softcap 0 and no window: the "
@@ -620,13 +631,11 @@ def phase_kernels(n_corpus: int) -> list[dict]:
     from repro_torch.kernels import l2_distance as l2
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = []
-    if n_corpus:
-        out = [_pairwise_row(l2, ops, mlib, gen, n_corpus),
-               _gather_row(gd, gen, n_corpus),
-               _gather_sq8_row(gd, ops, ref, gen),
-               _pairwise_sq8_row(l2, ops, ref, mlib, gen)]
-    out.append(_flash_row(fa, gen))
+    out = [_pairwise_row(l2, ops, mlib, gen, n_corpus),
+           _gather_row(gd, gen, n_corpus),
+           _gather_sq8_row(gd, ops, ref, gen),
+           _pairwise_sq8_row(l2, ops, ref, mlib, gen),
+           _flash_row(fa, gen)]
     torch.cuda.empty_cache()
     for row in out:
         emit("kernel", **row)
@@ -1021,8 +1030,7 @@ def phase_lm_exact(counters: dict) -> dict:
     dec = _teacher_forced(M, card, toks.cuda())
     tokens = {}
     for dev, model in (("cuda", card), ("cpu", cpu)):
-        eng = engine.ServeEngine(model, cfg, batch_slots=2, max_seq=64,
-                                 device=dev)
+        eng = engine.ServeEngine(model, cfg, batch_slots=2, max_seq=64)
         reqs = eng.run([engine.Request(rid=i, prompt=p, max_new=8)
                         for i, p in enumerate(prompts)])
         tokens[dev] = [r.out for r in reqs]
@@ -1234,8 +1242,6 @@ def main() -> int:
                     help="corpus size of the main path (default 50k)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="only profile one grouped build of N points")
-    ap.add_argument("--lm-only", action="store_true",
-                    help="only the flash kernel's checks and the LM phases")
     args = ap.parse_args()
 
     import torch
@@ -1257,20 +1263,19 @@ def main() -> int:
     if args.profile:
         phase_profile(args.profile)
         return 0
-    kernels = phase_kernels(0 if args.lm_only else args.n)
+    kernels = phase_kernels(args.n)
     by_path = {}
-    if not args.lm_only:
-        phase_exact()
-        by_path["main"] = phase_main(args.n, counters)
-        phase_serve_exact()
-        data = serve_data()
-        # the index's default ip metric, then cosine on the same cache: on
-        # this geometry the raw-ip graph traps every search near its entry,
-        # in the reference as in the port (PERF.md, ROADMAP queue 3)
-        by_path["serve_ip"] = phase_serve(counters, data, "ip")
-        by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
-        del data
-        torch.cuda.empty_cache()
+    phase_exact()
+    by_path["main"] = phase_main(args.n, counters)
+    phase_serve_exact()
+    data = serve_data()
+    # the index's default ip metric, then cosine on the same cache: on
+    # this geometry the raw-ip graph traps every search near its entry,
+    # in the reference as in the port (PERF.md, ROADMAP queue 3)
+    by_path["serve_ip"] = phase_serve(counters, data, "ip")
+    by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
+    del data
+    torch.cuda.empty_cache()
     by_path["lm_exact"] = phase_lm_exact(counters)
     by_path["lm_width"] = phase_lm_width(counters)
     by_path["lm_prefill"], model = phase_lm_prefill(counters)

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 # seconds each library's nvcc run took in this process (0 when cached)
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -59,20 +60,23 @@ def build(name: str) -> pathlib.Path:
     return out
 
 
-def build_all(names: list[str]) -> None:
-    """Compile several sources at once, one nvcc process each."""
-    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        list(pool.map(build, names))
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
             _LIBS[name] = lib
         return lib
+
+
+def load_all(names: list[str]) -> list[ctypes.CDLL]:
+    """``load`` several libraries at once, their nvcc runs started
+    together."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(load, names))
 
 
 def check(err: int, what: str) -> None:

@@ -179,20 +179,13 @@ class Request:
 
 
 class ServeEngine:
-    """Slot-based decode serving of an ``models.model.LM``.
-
-    ``device`` (default "cuda") is where the engine runs and must hold the
-    model; without a card it raises unless the caller passes
-    ``device="cpu"``."""
+    """Slot-based decode serving of an ``models.model.LM``, on the device
+    that holds the model's weights."""
 
     def __init__(self, params: M.LM, cfg: ArchConfig, *,
                  batch_slots: int = 4, max_seq: int = 512,
-                 eos_id: int = -1, greedy: bool = True,
-                 device: "str | torch.device" = "cuda"):
-        self.device = resolve_device(device)
-        if params.device.type != self.device.type:
-            raise ValueError(f"ServeEngine on {self.device}: the model's "
-                             f"weights are on {params.device}")
+                 eos_id: int = -1, greedy: bool = True):
+        self.device = resolve_device(params.device)
         self.params = params
         self.cfg = cfg
         self.b = batch_slots

@@ -267,8 +267,7 @@ def test_card_lm_equals_cpu_lm(card):
                for n in (9, 3, 5)]
     outs = {}
     for dev, model in (("cuda", gpu), ("cpu", cpu)):
-        eng = engine.ServeEngine(model, cfg, batch_slots=2, max_seq=32,
-                                 device=dev)
+        eng = engine.ServeEngine(model, cfg, batch_slots=2, max_seq=32)
         outs[dev] = [r.out for r in eng.run(
             [engine.Request(rid=i, prompt=p, max_new=4)
              for i, p in enumerate(prompts)])]

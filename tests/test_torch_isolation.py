@@ -94,7 +94,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_lm_entry_points_raise_without_a_card(monkeypatch):
-    """models.model, the converter and ServeEngine default to the card."""
+    """models.model and the converter default to the card; ServeEngine
+    runs where the model's weights are."""
     from repro_torch.configs import registry
     from repro_torch.core import convert
     from repro_torch.models import model
@@ -106,8 +107,8 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
     calls = [
         lambda: model.init_params(cfg, torch.Generator().manual_seed(0)),
         lambda: convert.lm_params_from_numpy({}, cfg),
-        lambda: engine.ServeEngine(cpu, cfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    assert engine.ServeEngine(cpu, cfg).device == torch.device("cpu")

@@ -136,8 +136,7 @@ def test_engine_matches_reference(arch, lengths):
     jeng = JE.ServeEngine(params, jcfg, batch_slots=2, max_seq=64)
     want = jeng.run([JE.Request(rid=i, prompt=p, max_new=5)
                      for i, p in enumerate(prompts)])
-    teng = TE.ServeEngine(model, tcfg, batch_slots=2, max_seq=64,
-                          device="cpu")
+    teng = TE.ServeEngine(model, tcfg, batch_slots=2, max_seq=64)
     got = teng.run([TE.Request(rid=i, prompt=p, max_new=5)
                     for i, p in enumerate(prompts)])
     for a, b in zip(want, got):
@@ -152,8 +151,7 @@ def test_engine_matches_reference(arch, lengths):
 
 def test_engine_overflow_guard_and_unported_retrieval():
     _, _, tcfg, model = _pair("granite_3_8b")
-    eng = TE.ServeEngine(model, tcfg, batch_slots=2, max_seq=16,
-                         device="cpu")
+    eng = TE.ServeEngine(model, tcfg, batch_slots=2, max_seq=16)
     with pytest.raises(ValueError, match="prefill capacity"):
         eng.submit(TE.Request(rid=0, prompt=np.arange(16, dtype=np.int32)))
     eng.submit(TE.Request(rid=1, prompt=np.arange(15, dtype=np.int32)))
@@ -161,8 +159,8 @@ def test_engine_overflow_guard_and_unported_retrieval():
             None), lambda: eng.swap_retrieval_index(None)):
         with pytest.raises(NotImplementedError, match="item 14"):
             call()
-    with pytest.raises(ValueError, match="weights are on"):
-        TE.ServeEngine(model.to("meta"), tcfg, device="cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        TE.ServeEngine(model.to("meta"), tcfg)
 
 
 @pytest.mark.parametrize("bad", [dict(top_k=100, ef=50), dict(num_shards=0),

@@ -54,8 +54,7 @@ def _port(tree, prompts, slots, max_new, arch):
     from repro_torch.serve import engine
     cfg = registry.get_config(arch).smoke()
     model = convert.lm_params_from_numpy(tree, cfg, device="cpu")
-    eng = engine.ServeEngine(model, cfg, batch_slots=slots, max_seq=64,
-                             device="cpu")
+    eng = engine.ServeEngine(model, cfg, batch_slots=slots, max_seq=64)
     reqs = [engine.Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts[:slots])]
     for r in reqs:
