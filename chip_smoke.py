@@ -7,7 +7,9 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
 
 1. device     -- nvidia-smi name and power limit, torch/CUDA versions, TF32.
 2. build      -- nvcc builds of ``src/repro_torch/kernels/csrc/distance.cu``
-                 and ``flash_attention.cu``, started together.
+                 and ``flash_attention.cu``, started together; ptxas's
+                 registers, stack and spills for each flash kernel, and the
+                 bf16 kernel's dynamic shared memory per padded head dim.
 3. kernels    -- each CUDA kernel (fp32 and int8 gather, fp32 and int8
                  pairwise, flash attention) against its plain PyTorch
                  version on the card, at every shape the paths launch it
@@ -19,7 +21,12 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  and within one bf16 rounding in bf16 (rtol 2^-7, atol
                  1e-3), also in fp32 at the prefill's shape; kernel, plain
                  and library times (median of 5 timed batches, with their
-                 spread) beside the bound.
+                 spread) beside the bound; the gathers' device time from a
+                 CUDA graph of 100 launches beside their wrapper-inclusive
+                 time; flash's achieved TFLOP/s, bound share and
+                 special-function floor at four settings, with SDPA beside
+                 it at soft-cap 0 (causal, and causal with an explicit
+                 window mask).
 4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
                  in [-4, 4]) built with 4 configs on the card and on the
                  CPU: identical graphs and counters; multi == single.
@@ -80,6 +87,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import json
 import math
@@ -141,16 +149,6 @@ PROFILE_STEPS = 8          # decode steps profiled after the serve run
 # so they differ by at most one bf16 ulp (2^-7 of the value); the
 # reference's 5e-2 would exceed a typical output at sk = 8192 (~0.02).
 FA_TOL = {"float32": (5e-4, 5e-4), "bfloat16": (2.0 ** -7, 1e-3)}
-# the reference's own flash cases
-FA_CASES = [
-    dict(sq=64, sk=64, w=0, cap=0.0, off=0, causal=True),
-    dict(sq=32, sk=32, w=17, cap=0.0, off=0, causal=True),
-    dict(sq=64, sk=64, w=0, cap=30.0, off=0, causal=True),
-    dict(sq=1, sk=70, w=0, cap=0.0, off=69, causal=True),
-    dict(sq=40, sk=56, w=0, cap=0.0, off=16, causal=True),
-    dict(sq=24, sk=24, w=0, cap=0.0, off=0, causal=False),
-    dict(sq=16, sk=144, w=48, cap=50.0, off=128, causal=True),
-]
 
 
 def emit(phase: str, **kw) -> None:
@@ -180,6 +178,38 @@ def time_ms(fn, reps: int = 20, runs: int = 5) -> tuple[float, list]:
         end.record()
         end.synchronize()
         per.append(start.elapsed_time(end) / reps)
+    per.sort()
+    return per[len(per) // 2], [per[0], per[-1]]
+
+
+def graph_ms(fn, n: int = 100, runs: int = 5) -> tuple[float, list]:
+    """Device ms per call of ``fn``: ``n`` calls captured in one CUDA
+    graph, replayed ``runs`` times under CUDA events (median, [min, max]).
+    The host's work per call (checks, allocation, the ctypes call) is
+    left out: what remains is the kernel and the graph's own gap between
+    launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / n)
+    del graph
     per.sort()
     return per[len(per) // 2], [per[0], per[-1]]
 
@@ -215,10 +245,15 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
     sources = ["distance", "flash_attention"]
     t0 = time.perf_counter()
-    _build.load_all(sources)
+    _, flash = _build.load_all(sources)
+    smem = flash.flash_attention_bf16_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     emit("build", sources=[f"{n}.cu" for n in sources],
          seconds=time.perf_counter() - t0, nvcc_seconds=_build.BUILD_SECONDS,
-         flags=_build.NVCC_FLAGS)
+         flags=_build.NVCC_FLAGS,
+         flash_ptxas=_build.ptxas_summary(
+             _build.PTXAS.get("flash_attention", ""), "flash_attention"),
+         flash_bf16_smem_bytes={dp: smem(dp) for dp in (64, 128, 224, 256)})
 
 
 def _data(gen, shape, integer: bool):
@@ -342,11 +377,14 @@ def _gather_row(gd, gen, n_corpus: int) -> dict:
                         dtype=torch.int32)
     mask = torch.ones((b, k), dtype=torch.bool, device="cuda")
     cached = torch.zeros((b, k), device="cuda")
+    def kernel_fn():
+        return gd.gather_distance_ids(u, data, ids, cached, mask,
+                                      kernel="l2")
     times = timed_row(
-        lambda: gd.gather_distance_ids(u, data, ids, cached, mask,
-                                       kernel="l2"),
+        kernel_fn,
         lambda: gd.gather_distance_ids_plain(u, data, ids, cached, mask,
                                              "l2"), reps=100)
+    times["device_ms"], times["device_ms_spread"] = graph_ms(kernel_fn)
     lanes = int(mask.sum())
     nbytes = 4.0 * (b * d + lanes * d + 3 * b * k) + b * k
     bms, by = bound_ms(nbytes, 3.0 * lanes * d)
@@ -404,12 +442,15 @@ def _gather_sq8_row(gd, ops, ref, gen) -> dict:
                         dtype=torch.int32)
     mask = torch.ones((b, k), dtype=torch.bool, device="cuda")
     cached = torch.zeros((b, k), device="cuda")
+    def kernel_fn():
+        return gd.gather_distance_sq8_ids(qs, qn, quant.codes, quant.norms,
+                                          ids, cached, mask, kernel="l2")
     times = timed_row(
-        lambda: gd.gather_distance_sq8_ids(qs, qn, quant.codes, quant.norms,
-                                           ids, cached, mask, kernel="l2"),
+        kernel_fn,
         lambda: gd.gather_distance_sq8_ids_plain(
             qs, qn, quant.codes, quant.norms, ids, cached, mask, "l2"),
         reps=100)
+    times["device_ms"], times["device_ms_spread"] = graph_ms(kernel_fn)
     lanes = int(mask.sum())
     # qs and qn, each lane's code row and norm, ids/cached/mask/out
     nbytes = 4.0 * (b * d + b) + lanes * (d + 4) + b * k * (4 + 4 + 1 + 4)
@@ -520,11 +561,13 @@ def _attended_pairs(sq: int, sk: int, causal: bool, window: int,
 def _flash_shapes() -> list[tuple]:
     """(b, h, sq, sk, dh, dtype, causal, window, softcap, q_offset) of every
     launch the LM phases make (a local and a global layer each), the
-    reference's own FA_CASES in both dtypes, and the prefill's shape in
-    fp32 too: there the window binds across many q blocks, and fp32 holds
-    the kernel to 5e-4 rather than to a bf16 rounding."""
+    flash cases every check of the kernel runs (FA_CASES) in both dtypes,
+    and the prefill's shape in fp32 too: there the window binds across
+    many q blocks, and fp32 holds the kernel to 5e-4 rather than to a bf16
+    rounding."""
     import torch
     from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import FA_CASES
     full = registry.get_config(LM_ARCH)
     smoke = full.smoke()
     out = []
@@ -544,8 +587,9 @@ def _flash_shapes() -> list[tuple]:
 
 def _flash_row(fa, gen) -> dict:
     """The flash kernel against its plain version at every LM shape, timed
-    at the prefill's (1, 16, 8192, 224) bf16 global and local layers, with
-    SDPA at softcap 0 and no window beside the kernel at that setting."""
+    at the prefill's (1, 16, 8192, 224) bf16 global and local layers, and
+    at soft-cap 0 causal and causal with the window, where SDPA computes
+    the same function (``is_causal``, and an explicit boolean mask)."""
     import torch
     import torch.nn.functional as F
     errs = {"float32": 0.0, "bfloat16": 0.0}
@@ -579,6 +623,8 @@ def _flash_row(fa, gen) -> dict:
                            device="cuda", dtype=torch.bfloat16)
                for _ in range(3))
     nbytes = 4.0 * q.numel() * 2
+    sfu_rate = sfu_ops_per_s()
+    sfu = []
 
     def timed(window, cap, library=None):
         kw = dict(causal=True, window=window, softcap=cap)
@@ -586,41 +632,85 @@ def _flash_row(fa, gen) -> dict:
                         lambda: fa.flash_attention_plain(q, k, v, **kw),
                         library, reps=2)
         pairs = _attended_pairs(PREFILL_S, PREFILL_S, True, window, 0)
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            nbytes, 4.0 * cfg_h * pairs * cfg_dh, BF16_FLOPS)
-        row["attended_pairs"] = pairs
+        flops = 4.0 * cfg_h * pairs * cfg_dh
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                    BF16_FLOPS)
+        row["tflops"] = flops / (row["ms"] * 1e9)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        # the softmax's exp2, and the soft-cap's exp2 and reciprocal
+        mufu = 3 if cap > 0 else 1
+        sfu.append(dict(window=window, softcap=cap, attended_pairs=pairs,
+                        mufu_per_pair=mufu,
+                        sfu_floor_ms=cfg_h * pairs * mufu / sfu_rate * 1e3,
+                        bound_ms=row["bound_ms"], ms=row["ms"]))
         return row
+
+    def settings(row):
+        return {k_: row[k_] for k_ in (
+            "ms", "ms_spread", "plain_ms", "plain_ms_spread", "bound_ms",
+            "bound_by", "tflops", "bound_share")}
 
     glob = timed(0, cap)
     local = timed(window, cap)
     lib = timed(0, 0.0, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True))
-    del q, k, v
+    # the local layer's mask, explicit: SDPA cannot soft-cap, so the same
+    # function as the kernel's at soft-cap 0
+    pos = torch.arange(PREFILL_S, device="cuda")
+    wmask = (pos[None, :] <= pos[:, None]) & \
+        (pos[None, :] > pos[:, None] - window)
+    lib_w = timed(window, 0.0, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=wmask))
+    del q, k, v, wmask
+    # an estimate beside the measurements, kept off the kernels line: the
+    # rate is an assumed 16 MUFU operations a clock on each SM
+    emit("flash_sfu_floor", sfu_ops_per_s=sfu_rate,
+         note="computed, not measured: 16 MUFU operations a clock per SM "
+              "at nvidia-smi's clocks.max.sm, MUFU operations a pair "
+              "counted from the kernel's source", settings=sfu)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:91",
                 launches=0, max_abs_err=max(errs.values()),
                 max_abs_err_fp32=errs["float32"],
                 max_abs_err_bf16=errs["bfloat16"],
-                **{k_: glob[k_] for k_ in ("ms", "ms_spread", "plain_ms",
-                                           "plain_ms_spread", "bound_ms",
-                                           "bound_by")},
+                **settings(glob),
                 library_ms=lib["library_ms"],
                 library_ms_spread=lib["library_ms_spread"],
                 shape=[1, cfg_h, PREFILL_S, cfg_dh], dtype="bfloat16",
                 form="global layer: causal, softcap 50",
-                local_layer=dict(window=window, softcap=cap, **local),
+                mma="wgmma.mma_async m64n64k16 (Q.K^T) and m64nDPk16 "
+                    "(P.V, P split in two bf16 parts), TMA K/V on mbarriers "
+                    "(flash_attention_wgmma_kernel)",
+                local_layer=dict(window=window, softcap=cap,
+                                 **settings(local)),
                 library_setting=dict(
-                    softcap=0.0, window=0, kernel_ms=lib["ms"],
-                    kernel_ms_spread=lib["ms_spread"],
-                    plain_ms=lib["plain_ms"],
-                    plain_ms_spread=lib["plain_ms_spread"],
-                    bound_ms=lib["bound_ms"]),
+                    softcap=0.0, window=0, library_ms=lib["library_ms"],
+                    library_ms_spread=lib["library_ms_spread"],
+                    **settings(lib)),
+                window_setting=dict(
+                    softcap=0.0, window=window,
+                    library_ms=lib_w["library_ms"],
+                    library_ms_spread=lib_w["library_ms_spread"],
+                    **settings(lib_w)),
                 library="torch.nn.functional.scaled_dot_product_attention("
                         "is_causal=True) at softcap 0 and no window: the "
                         "nearest library call, not the same function (it "
-                        "cannot soft-cap)",
+                        "cannot soft-cap); window_setting holds SDPA with "
+                        "an explicit causal-window mask at softcap 0",
                 shapes_checked=checked)
+
+
+def sfu_ops_per_s() -> float:
+    """The card's special-function (MUFU) rate: 16 a clock on each SM at
+    the card's maximum SM clock (nvidia-smi's clocks.max.sm)."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16.0 * sms * mhz * 1e6
 
 
 def phase_kernels(n_corpus: int) -> list[dict]:

@@ -5,7 +5,11 @@ first use into ``build/kernels/lib<name>.so`` at the repository root
 (gitignored) with::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -o build/kernels/lib<name>.so \
+         csrc/<name>.cu
+
+``-Xptxas=-v`` makes ptxas report each kernel's registers, stack and
+spills; ``PTXAS`` keeps that report per library, ``ptxas_summary`` reads it.
 
 A library is rebuilt when its source is newer than it.  Nothing here runs at
 import time: the CPU tests import every module without nvcc present.
@@ -15,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -24,13 +29,15 @@ from concurrent.futures import ThreadPoolExecutor
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 # seconds each library's nvcc run took in this process (0 when cached)
 BUILD_SECONDS: dict[str, float] = {}
+# ptxas's -v report for each library built in this process
+PTXAS: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -57,6 +64,7 @@ def build(name: str) -> pathlib.Path:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    PTXAS[name] = proc.stderr
     return out
 
 
@@ -83,3 +91,27 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaGetLastError() code returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_summary(report: str, match: str = "") -> list[dict]:
+    """Registers, stack and spill bytes of each kernel in a ptxas -v
+    report whose mangled name contains ``match``."""
+    rows, cur = [], None
+    for line in report.splitlines():
+        if m := _ENTRY.search(line):
+            cur = {"kernel": m.group(1)}
+            if match in cur["kernel"]:
+                rows.append(cur)
+        elif cur is not None and (m := _STACK.search(line)):
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        elif cur is not None and (m := _REGS.search(line)):
+            cur["registers"] = int(m.group(1))
+    return rows

@@ -13,61 +13,851 @@
 //   out     = online softmax(logits) . v, with the finite -1e30 sentinel,
 //             divided by (l > 0 ? l : 1): a fully masked row gives exactly 0
 //
-// in fp32, stored in the input type (fp32 or bf16).  Heads arrive already
-// GQA-repeated, as in the reference.
+// stored in the input type (fp32 or bf16).  Heads arrive already
+// GQA-repeated, as in the reference.  Two bodies, one per input type; each
+// entry point launches only its own, with no fallback between them.
 //
-// Bound: operations.  At the prefill shape (1, 16, 8192, 224) bf16 the
-// unmasked pairs need 4*h*pairs*dh = 481 GFLOP causal and ~361 GFLOP at
-// window 4096: ~0.49 / 0.37 ms at the H100's 989 TFLOP/s dense bf16 peak,
-// against 235 MB of q, k, v and o (0.07 ms at 3.35 TB/s).
+// bf16: flash_attention_wgmma_kernel<DP>, on the tensor cores.
 //
-// Design (simple first, no tensor cores): one 256-thread block per 64 query
-// rows of one (batch*head) slice; each of the 8 warps owns 8 query rows and
-// keeps their running max, sum and (8 x dh) output accumulator in registers
-// (dh <= 256: 8 columns per lane).  The block walks the keys in steps of 32
-// (one key per lane): K and V tiles are staged in shared memory as fp32
-// (converted from the input type as they are stored), each lane computes
-// its key's logit for the warp's 8 rows with float4 reads (q broadcast, K
-// rows padded so that 8 lanes' float4 rows hit distinct banks), the row
-// max and sum are warp-shuffle reductions, and P.V broadcasts each key's
-// probabilities with shuffles against V rows read by lane-strided columns.
-// The q tile (64 x dh fp32) and the two key tiles take 115 KB at dh=224,
-// above the 48 KB static limit, so the launch opts in to dynamic shared
-// memory with cudaFuncSetAttribute.  Key steps wholly masked for every row
-// of the block (past the causal diagonal, or before the window of the
-// block's first row) are skipped: for such a step the reference's update
-// is the identity (alpha = 1, p = 0).  Ragged edges are masked, not read:
-// q rows past sq and key rows past sk are zero-filled and never stored or
-// attended.  tanhf and expf, not the approximate forms, so the soft-cap
-// and the softmax stay within the plain version's tolerance.
+// Bound: operations.  At the prefill shape (1, 16, 8192, 224) the attended
+// (query, key) pairs need 4*h*pairs*dh = 481 GFLOP causal and 361 GFLOP at
+// window 4096: 0.486 / 0.365 ms at the H100's 989 TFLOP/s dense bf16 peak,
+// against 235 MB of q, k, v and o (0.07 ms at 3.35 TB/s).  Beside it sits
+// the special-function (MUFU) floor: the softmax's exp2 and the soft-cap's
+// exp2 and reciprocal are three MUFU operations a pair, 537 M pairs a
+// global layer at 16 a clock per SM: ~0.4 ms.
+//
+// Design (FA3's structure, without a producer warpgroup):
+//   - One 256-thread block of two warpgroups owns 128 query rows of one
+//     slice, 64 a warpgroup; each keeps its 64 x DP fp32 output (DP/2
+//     registers a thread), running max and sum in registers.  dh is padded
+//     to DP in {64, 128, 224, 256}; tiles live in shared memory in the
+//     128-byte-swizzle layout wgmma's descriptors read, in 64-column atoms
+//     (dh = 224 fills 3.5 of 4; the rest is never read).
+//   - S = Q.K^T is wgmma.m64n64k16 with Q and K from shared memory (both
+//     K-major); O += P.V is wgmma.m64nDPk16 with P from registers (the
+//     m64n64 accumulator of S is the A fragment of two k16 steps) and V
+//     from shared memory, MN-major (transposed B).
+//   - Keys go in tiles of 64.  Thread 0 requests each tile by TMA (a 3-D
+//     tensor map per input, one box a 64-column atom, zero past sk and dh)
+//     onto the stage's "full" mbarrier; K has 2 stages and V 3, and a stage
+//     is refilled once every thread has arrived on its "empty" mbarrier
+//     after its warpgroup's product read it, so the warpgroups never wait
+//     on each other at a block barrier.  Rows TMA cannot read (dh % 8 != 0,
+//     or unaligned) are copied element by element into the same tiles by
+//     every thread, which then arrives.  225 KB of shared memory at DP 224.
+//   - Each warpgroup issues S of tile i and P.V of tile i - 1 together and
+//     runs the softmax of tile i while the tensor cores do that P.V;
+//     the warpgroups take turns issuing S (two named barriers, one each
+//     way, as in FA3's ping-pong), so that each one's softmax also runs
+//     under the other's products.  Named barriers have no timeout: the
+//     two-way hand-off is what keeps each warpgroup within one turn of
+//     the other, so that neither can complete a barrier's phase alone.
+//     The products are never issued under a branch (ptxas would serialize
+//     them): every warpgroup processes every key tile of the block's
+//     range, and a tile wholly masked for its rows is the identity update.
+//   - The softmax runs in base 2 on the accumulator registers (log2(e)
+//     folded into the scale, exp2 as ex2.approx), and the soft-cap's
+//     tanh(u) as 1 - 2 / (1 + 2^(2u log2 e)) from ex2.approx and
+//     rcp.approx: absolute error ~1e-7 in tanh, where tanh.approx's ~5e-4
+//     would move a logit capped at 50 by 0.025.
+//   - P is split into a bf16 high part and a bf16 low part (P - high) and
+//     both are multiplied: a single rounding of P moves an output with few
+//     attended keys by up to ~2^-9 of the spread of its V rows, beyond the
+//     one-bf16-rounding check, while the split leaves ~2^-17.  The row sum
+//     l is taken from P in fp32.  The split costs one more P.V product:
+//     1.5x the tensor work of the bound.
+//   - Masking only where it applies: key tiles wholly masked for the block
+//     are never loaded, and the causal, window and sk masks are evaluated
+//     only on tiles that straddle one of their edges (per warp).  A masked
+//     logit is the -1e30 sentinel, and a row with no attended key yet
+//     exponentiates against 0 instead of its max, so its probabilities are
+//     exactly 0.
+//   - Blocks are ordered with the last query blocks first (grid y reversed,
+//     slices along x), so the causal tail does not idle the card.
+//   - The epilogue normalizes, rounds to bf16, stages each warp's rows in
+//     its own Q rows of shared memory and stores 16-byte chunks.
+//
+// fp32: flash_attention_kernel, SIMT (fp32 runs only in parity checks;
+// TF32 tensor cores would not hold the reference's 5e-4).  One
+// 256-thread block per 64 query rows; each warp keeps 8 rows' max, sum and
+// output in registers; 32-key steps of K and V are staged in shared
+// memory; q.k as float4 FMAs, P.V through shuffles; tanhf and expf.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or the shared-memory opt-in's error) so the
 // Python wrapper can raise on a refused launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+constexpr float FA_NEG = -1e30f;               // the reference's sentinel
+constexpr int FA_MAX_DH = 256;
+
+// ---------------------------------------------------------------- bf16 --
+
+constexpr int WG_ROWS = 64;                    // query rows a warpgroup
+constexpr int WG_GROUPS = 2;                   // consumer warpgroups a block
+constexpr int WG_THREADS = WG_GROUPS * 128;
+constexpr int WG_BQ = WG_GROUPS * WG_ROWS;     // 128 query rows per block
+constexpr int WG_BK = 64;                      // keys per tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+// Tiles live in shared memory in the 128-byte-swizzle layout that wgmma's
+// descriptors read: a row's 16-byte chunk c sits in atom column c / 8 (each
+// atom column holds all rows of the tile, 128 bytes a row) at chunk
+// (c % 8) ^ (row % 8).  Tile bases are 1024-byte aligned.
+template <int DP>
+struct WgShape {
+  static constexpr int KS = DP / 16;           // k16 steps of Q.K^T
+  static constexpr int CH = DP / 8;            // 16-byte chunks filled a row
+  static constexpr int ATOMS = (DP + 63) / 64; // 128-byte atom columns
+  static constexpr int Q_BYTES = WG_BQ * ATOMS * 128;
+  static constexpr int KV_BYTES = WG_BK * ATOMS * 128;
+  // after 1024-byte alignment: Q, 2 K stages, 3 V stages, 11 barriers
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 5 * KV_BYTES + 128;
+  static_assert(SMEM <= 232448, "a block may use 227 KB of shared memory");
+};
+
+template <int ROWS>
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// 64-bit wgmma descriptor of a 128-byte-swizzled tile at smem address addr
+// (byte offsets lbo, sbo: leading and stride dimension offsets)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// generic-proxy writes to shared memory (cp.async, st.shared) made visible
+// to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// wait until the barrier's phase of parity `parity` has completed; a wait
+// of more than 4 s traps, so that a broken pipeline fails the launch
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t now = global_ns();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > 4000000000ull) __trap();
+  }
+}
+// one box of a 3-D tensor map into shared memory at dst, completing
+// bytes on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+// the warpgroups' turn-taking: a named barrier over the block's threads
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG_THREADS) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(WG_THREADS)
+               : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// registers an asynchronous wgmma reads or writes: kept in place (not
+// reused, not moved) up to this point
+template <int N>
+__device__ __forceinline__ void keep_live(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep_live(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
+}
+
+// d (64 x 64, fp32) += A (smem, K-major) . B (smem, K-major); d is
+// zeroed first when scale_d == 0
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) += A (registers) . B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (registers) . B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 224, fp32) += A (registers) . B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n224(float (&d)[112],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111}, "
+      "{%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256, fp32) += A (registers) . B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 224) wgmma_rs_n224(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// the bf16 pair nearest (lo, hi), and the bf16 pair nearest what it misses
+__device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& big,
+                                           uint32_t& small) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  const float2 f = __bfloat1622float2(h);
+  big = *reinterpret_cast<const uint32_t*>(&h);
+  small = pack_bf16(lo - f.x, hi - f.y);
+}
+
+// rows [row0, row0 + ROWS) of a (n_rows, dh) matrix into the swizzled tile
+// at dst, element by element (rows whose length is not a multiple of 16
+// bytes, or unaligned, which TMA cannot read); rows past n_rows and columns
+// in [dh, DP) become 0
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_rows(unsigned char* dst,
+                                          const bf16* __restrict__ src,
+                                          int row0, int n_rows, int dh) {
+  for (int e = threadIdx.x; e < ROWS * DP; e += WG_THREADS) {
+    const int r = e / DP;
+    const int c = e - r * DP;
+    const int gr = row0 + r;
+    *reinterpret_cast<bf16*>(dst + swizzled<ROWS>(r, c >> 3) + (c & 7) * 2) =
+        (gr < n_rows && c < dh) ? src[static_cast<int64_t>(gr) * dh + c]
+                                : __ushort_as_bfloat16(0);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, bf16* __restrict__ o,
+                             int sq, int sk, int dh, float scale, int causal,
+                             int window, float softcap, int q_offset,
+                             int tma) {
+  using S = WgShape<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 1024-byte aligned tiles: Q [atoms][128 rows], then 2 K stages and 3 V
+  // stages, then the barriers: Q's, each stage's "full" and "empty"
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
+                                    1023);
+  unsigned char* qs = base;
+  unsigned char* ks = qs + S::Q_BYTES;
+  unsigned char* vs = ks + 2 * S::KV_BYTES;
+  const uint32_t q_full = smem_u32(vs + 3 * S::KV_BYTES);
+  const uint32_t k_full = q_full + 8, v_full = q_full + 24;    // [2], [3]
+  const uint32_t k_empty = q_full + 48, v_empty = q_full + 64; // [2], [3]
+
+  const int64_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BQ;   // last blocks first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;                               // warpgroup
+  const int g = lane >> 2;                                // fragment row
+  const int t = lane & 3;                                 // fragment column
+  const bf16* __restrict__ qb = q + bh * sq * dh;
+  const bf16* __restrict__ kb = k + bh * sk * dh;
+  const bf16* __restrict__ vb = v + bh * sk * dh;
+  bf16* __restrict__ ob = o + bh * sq * dh;
+
+  // keys any row of this block may attend, in whole tiles
+  const int a_lo = q_offset + q0;
+  const int a_hi = q_offset + min(q0 + WG_BQ, sq) - 1;
+  const int kv_end = causal ? min(sk, a_hi + 1) : sk;
+  const int kv_begin = window > 0 ? max(0, a_lo - window + 1) : 0;
+  const int t_begin = kv_begin / WG_BK;
+  const int t_end = kv_end > kv_begin ? (kv_end + WG_BK - 1) / WG_BK
+                                      : t_begin;
+
+  // this warp's 16 rows of the block
+  const int wr = wg * WG_ROWS + (warp & 3) * 16;          // block row
+  const int w_lo = q_offset + q0 + wr;
+  const int w_hi = q_offset + min(q0 + wr + 15, sq - 1);
+  const int qpos0 = w_lo + g;                             // rows g and g + 8
+
+  // base-2 logits: t2 = s * sc2, or cap2 - 2 cap2 / (1 + 2^(s * ucap))
+  const float sc2 = scale * LOG2E;
+  const float ucap = softcap > 0.f ? 2.f * scale * LOG2E / softcap : 0.f;
+  const float cap2 = softcap * LOG2E;
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
+  float m[2] = {FA_NEG, FA_NEG};
+  float l[2] = {0.f, 0.f};
+  // this warpgroup's Q rows: K-major, 8-row groups 1024 bytes apart
+  const uint32_t q_addr = smem_u32(qs) + wg * WG_ROWS * 128;
+  const int n_tiles = t_end - t_begin;
+
+  // S = Q . K^T for the tile in K stage `st` (64 x 64 a warpgroup, both
+  // K-major), issued and committed
+  auto issue_s = [&](float (&s)[32], int st) {
+    const uint32_t k_addr = smem_u32(ks + st * S::KV_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < S::KS; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss_n64(
+          s, sw128_desc(q_addr + (kk >> 2) * WG_BQ * 128 + off, 16, 1024),
+          sw128_desc(k_addr + (kk >> 2) * WG_BK * 128 + off, 16, 1024),
+          kk > 0);
+    }
+    wgmma_commit();
+  };
+  // P of a tile, high and low bf16 parts as A fragments (key step kk holds
+  // accumulator tiles 2 kk and 2 kk + 1)
+  uint32_t hi[WG_BK / 16][4], lo[WG_BK / 16][4];
+  // O += P . V for the tile in V stage `st` (MN-major: 64-column atoms
+  // 64 * 128 bytes apart, 8-key groups 1024 bytes apart), issued and
+  // committed
+  auto issue_pv = [&](int st) {
+    const uint32_t v_addr = smem_u32(vs + st * S::KV_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      const uint64_t dv =
+          sw128_desc(v_addr + kk * 16 * 128, WG_BK * 128, 1024);
+      wgmma_rs<DP>(acc, hi[kk], dv);
+      wgmma_rs<DP>(acc, lo[kk], dv);
+    }
+    wgmma_commit();
+  };
+  // the online softmax of a tile's logits in s (base 2, soft-capped,
+  // masked where the tile straddles a mask's edge): s becomes P, l and m
+  // are updated, and the factor O must be scaled by is returned in alpha.
+  // A wholly masked tile is the identity (P = 0, alpha = 1).
+  auto softmax = [&](float (&s)[32], int k0, float (&alpha)[2]) {
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        s[j] = cap2 - 2.f * cap2 * rcp(1.f + ex2(s[j] * ucap));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] *= sc2;
+    }
+    const bool masked = k0 + WG_BK > sk ||
+                        (causal && k0 + WG_BK - 1 > w_lo) ||
+                        (window > 0 && k0 <= w_hi - window);
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        // s[4 i + e]: row g + 8 (e / 2), key 8 i + 2 t + e % 2
+        const int kpos = k0 + (j >> 2) * 8 + 2 * t + (j & 1);
+        const int qpos = qpos0 + ((j >> 1) & 1) * 8;
+        const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
+        if (!ok) s[j] = FA_NEG;
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+    float base2[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no attended key yet: masked logits (the sentinel)
+      // exponentiate against 0, so they give exactly 0
+      base2[r] = mx[r] == FA_NEG ? 0.f : mx[r];
+      alpha[r] = ex2(m[r] - base2[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      s[j] = ex2(s[j] - base2[(j >> 1) & 1]);
+      rsum[(j >> 1) & 1] += s[j];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rsum[r];
+  };
+  // O *= alpha, then P (in s) into its bf16 fragments
+  auto rescale_and_split = [&](const float (&s)[32], const float (&alpha)[2]) {
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], hi[kk][j],
+                   lo[kk][j]);
+  };
+  // Each tile lands on its stage's "full" barrier: by TMA (thread 0 issues
+  // one box a 64-column atom and the expected bytes), or element by element
+  // by every thread, which then arrives.  K of tile i sits in stage i % 2
+  // and V in stage i % 3; a stage's n-th fill completes its barrier's n-th
+  // phase, so the wait has parity n % 2.  Every thread arrives on the
+  // stage's "empty" barrier once its warpgroup's product has read it, and
+  // a stage is refilled once both warpgroups have.
+  if (threadIdx.x == 0) {
+    const int count = tma ? 1 : WG_THREADS;
+    mbar_init(q_full, count);
+#pragma unroll
+    for (int st = 0; st < 3; ++st) {
+      if (st < 2) mbar_init(k_full + 8 * st, count);
+      if (st < 2) mbar_init(k_empty + 8 * st, WG_THREADS);
+      mbar_init(v_full + 8 * st, count);
+      mbar_init(v_empty + 8 * st, WG_THREADS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  // fill dst once the barrier `empty` has completed its phase of parity
+  // `parity` (no wait when empty is 0)
+  auto load = [&](unsigned char* dst, const CUtensorMap* map,
+                  const bf16* __restrict__ src, uint32_t bar, int row0,
+                  int n_rows, auto rows, uint32_t empty, int parity) {
+    constexpr int ROWS = decltype(rows)::value;
+    if (tma) {
+      if (threadIdx.x == 0) {
+        if (empty) mbar_wait(empty, parity);
+        mbar_expect_tx(bar, S::ATOMS * ROWS * 128);
+#pragma unroll
+        for (int at = 0; at < S::ATOMS; ++at)
+          tma_load(smem_u32(dst + at * ROWS * 128), map, bar, at * 64, row0,
+                   static_cast<int>(bh));
+      }
+    } else {
+      if (empty) mbar_wait(empty, parity);
+      load_rows<DP, ROWS>(dst, src, row0, n_rows, dh);
+      fence_async_smem();
+      mbar_arrive(bar);
+    }
+  };
+  using Tile = std::integral_constant<int, WG_BK>;
+  auto load_k = [&](int i) {
+    load(ks + (i & 1) * S::KV_BYTES, &tk, kb, k_full + 8 * (i & 1),
+         (t_begin + i) * WG_BK, sk, Tile{}, i >= 2 ? k_empty + 8 * (i & 1) : 0,
+         ((i - 2) >> 1) & 1);
+  };
+  auto load_v = [&](int i) {
+    load(vs + (i % 3) * S::KV_BYTES, &tv, vb, v_full + 8 * (i % 3),
+         (t_begin + i) * WG_BK, sk, Tile{}, i >= 3 ? v_empty + 8 * (i % 3) : 0,
+         ((i - 3) / 3) & 1);
+  };
+  auto wait_k = [&](int i) { mbar_wait(k_full + 8 * (i & 1), (i >> 1) & 1); };
+  auto wait_v = [&](int i) { mbar_wait(v_full + 8 * (i % 3), (i / 3) & 1); };
+  auto free_k = [&](int i) { mbar_arrive(k_empty + 8 * (i & 1)); };
+  auto free_v = [&](int i) { mbar_arrive(v_empty + 8 * (i % 3)); };
+
+  // Tile 0: Q, K_0, K_1 and V_0 are requested; S_0 and its softmax.
+  // Tile i > 0: K_(i+1) and V_i are requested, S_i and the previous tile's
+  // P.V are issued together, and the softmax of tile i runs while the
+  // tensor cores do that P.V.  The warpgroups take turns: warpgroup 1
+  // issues S_i once warpgroup 0's S_i is done (barrier 1), and warpgroup 0
+  // issues S_(i+1) once warpgroup 1's S_i is done (barrier 2), so that
+  // their softmaxes alternate and neither reaches a named barrier twice
+  // before the other has reached it once.  Each barrier's arrivals and
+  // waits pair up one to one (1..n-1 on barrier 1, 1..n-2 against 2..n-1
+  // on barrier 2), so no phase is left open at exit.  Every warpgroup
+  // processes every tile of the block's range, so the products are never
+  // issued under a branch.
+  if (n_tiles > 0) {
+    load(qs, &tq, qb, q_full, q0, sq, std::integral_constant<int, WG_BQ>{}, 0,
+         0);
+    load_k(0);
+    if (n_tiles > 1) load_k(1);
+    load_v(0);
+    mbar_wait(q_full, 0);
+    wait_k(0);
+    float s[32], alpha[2];
+    wgmma_fence();
+    issue_s(s, 0);
+    wgmma_wait<0>();
+    free_k(0);
+    softmax(s, t_begin * WG_BK, alpha);
+    rescale_and_split(s, alpha);
+  }
+  for (int i = 1; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_k(i + 1);
+    load_v(i);
+    wait_k(i);
+    wait_v(i - 1);
+    float s[32], alpha[2];
+    if (wg == 1) named_sync(1);
+    if (wg == 0 && i >= 2) named_sync(2);
+    wgmma_fence();
+    issue_s(s, i & 1);
+    issue_pv((i - 1) % 3);
+    wgmma_wait<1>();                       // S_i done, P.V in flight
+    free_k(i);
+    if (wg == 0) named_arrive(1);
+    if (wg == 1 && i + 1 < n_tiles) named_arrive(2);
+    softmax(s, (t_begin + i) * WG_BK, alpha);
+    wgmma_wait<0>();                       // P.V has read P, written O
+    free_v(i - 1);
+    keep_live(hi);
+    keep_live(lo);
+    keep_live(acc);
+    rescale_and_split(s, alpha);
+  }
+  if (n_tiles > 0) {                       // the last tile's P.V
+    wait_v(n_tiles - 1);
+    wgmma_fence();
+    issue_pv((n_tiles - 1) % 3);
+    wgmma_wait<0>();
+    keep_live(acc);
+  }
+
+  // normalize, round to bf16, stage each warp's 16 rows where its Q rows
+  // were (the same swizzled layout: only this warpgroup's products read
+  // them, and they are done), and store 16-byte chunks
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float inv[2] = {1.f / (l[0] > 0.f ? l[0] : 1.f),
+                        1.f / (l[1] > 0.f ? l[1] : 1.f)};
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(
+          qs + swizzled<WG_BQ>(wr + g + 8 * h, j) + 4 * t) =
+          pack_bf16(acc[4 * j + 2 * h] * inv[h],
+                    acc[4 * j + 2 * h + 1] * inv[h]);
+  __syncwarp();
+  if (tma) {
+    for (int e = lane; e < 16 * S::CH; e += 32) {
+      const int r = e / S::CH;
+      const int c = e - r * S::CH;
+      const int row = q0 + wr + r;
+      if (row < sq && c * 8 < dh)
+        *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(row) * dh +
+                                  c * 8) =
+            *reinterpret_cast<const uint4*>(qs + swizzled<WG_BQ>(wr + r, c));
+    }
+  } else {
+    for (int e = lane; e < 16 * dh; e += 32) {
+      const int r = e / dh;
+      const int c = e - r * dh;
+      const int row = q0 + wr + r;
+      if (row < sq)
+        ob[static_cast<int64_t>(row) * dh + c] =
+            *reinterpret_cast<const bf16*>(
+                qs + swizzled<WG_BQ>(wr + r, c >> 3) + (c & 7) * 2);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so that the
+// library needs no link against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// (bh, rows, dh) bf16 as a 3-D tensor map of boxes 64 columns by box_rows
+// rows, 128-byte swizzled, zero outside the tensor
+int tensor_map(CUtensorMap* map, const void* ptr, int bh, int rows, int dh,
+               int box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
+                                 static_cast<cuuint64_t>(rows) * dh * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DP>
+int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                 int bh, int sq, int sk, int dh, float scale, int causal,
+                 int window, float softcap, int q_offset,
+                 cudaStream_t stream) {
+  const size_t smem = WgShape<DP>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // TMA reads rows of whole 16-byte units from 16-byte aligned bases; any
+  // other input is read element by element
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int tma = sk > 0 && dh % 8 == 0 && aligned(q) && aligned(k) &&
+                  aligned(v) && aligned(o);
+  CUtensorMap tq = {}, tk = {}, tv = {};
+  if (tma) {
+    int bad = tensor_map(&tq, q, bh, sq, dh, WG_BQ);
+    if (!bad) bad = tensor_map(&tk, k, bh, sk, dh, WG_BK);
+    if (!bad) bad = tensor_map(&tv, v, bh, sk, dh, WG_BK);
+    if (bad) return bad;
+  }
+  const dim3 grid(bh, (sq + WG_BQ - 1) / WG_BQ);
+  flash_attention_wgmma_kernel<DP><<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, q, k, v, o, sq, sk, dh, scale, causal, window, softcap,
+      q_offset, tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- fp32 --
 
 constexpr int FA_WARPS = 8;
 constexpr int FA_ROWS = 8;                     // query rows per warp
 constexpr int FA_BQ = FA_WARPS * FA_ROWS;      // 64 query rows per block
 constexpr int FA_BK = 32;                      // keys per step, one per lane
 constexpr int FA_THREADS = FA_WARPS * 32;
-constexpr int FA_MAX_DH = 256;
 constexpr int FA_COLS = FA_MAX_DH / 32;        // output columns per lane
-constexpr float FA_NEG = -1e30f;               // the reference's sentinel
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // dh rounded up to a multiple of 4 (float4 reads); the padding is zero
 __host__ __device__ __forceinline__ int padded(int dh) {
@@ -89,9 +879,8 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int dh) {
 
 // rows [row0, row0 + n_tile) of a (n_rows, dh) matrix into dst (row stride
 // ld floats); rows past n_rows and columns in [dh, padded(dh)) become 0
-template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int row0, int n_tile, int n_rows,
                                           int dh) {
   const int dhp = padded(dh);
@@ -101,7 +890,7 @@ __device__ __forceinline__ void load_tile(float* dst, int ld,
     const int c = e - r * dhp;
     const int gr = row0 + r;
     float x = 0.f;
-    if (gr < n_rows && c < dh) x = to_f32(src[static_cast<int64_t>(gr) * dh + c]);
+    if (gr < n_rows && c < dh) x = src[static_cast<int64_t>(gr) * dh + c];
     dst[r * ld + c] = x;
   }
 }
@@ -120,12 +909,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(FA_THREADS, 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int sk, int dh, float scale, int causal, int window,
-                       float softcap, int q_offset) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int sq, int sk, int dh, float scale, int causal,
+                       int window, float softcap, int q_offset) {
   extern __shared__ __align__(16) float smem[];
   const int dhp = padded(dh);
   const int ldk = k_stride(dh);
@@ -138,10 +927,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = warp * FA_ROWS;             // this warp's first local row
-  const T* __restrict__ qb = q + bh * sq * dh;
-  const T* __restrict__ kb = k + bh * sk * dh;
-  const T* __restrict__ vb = v + bh * sk * dh;
-  T* __restrict__ ob = o + bh * sq * dh;
+  const float* __restrict__ qb = q + bh * sq * dh;
+  const float* __restrict__ kb = k + bh * sk * dh;
+  const float* __restrict__ vb = v + bh * sk * dh;
+  float* __restrict__ ob = o + bh * sq * dh;
 
   load_tile(qs, dhp, qb, q0, FA_BQ, sq, dh);
 
@@ -228,32 +1017,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + r0 + r;
     if (row >= sq) continue;
     const float denom = l[r] > 0.f ? l[r] : 1.f;
-    T* orow = ob + static_cast<int64_t>(row) * dh;
+    float* orow = ob + static_cast<int64_t>(row) * dh;
 #pragma unroll
     for (int c = 0; c < FA_COLS; ++c) {
       const int col = lane + 32 * c;
-      if (col < dh) store(orow + col, acc[r][c] / denom);
+      if (col < dh) orow[col] = acc[r][c] / denom;
     }
   }
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, int bh, int sq, int sk,
-           int dh, float scale, int causal, int window, float softcap,
-           int q_offset, void* stream) {
+// the arguments both entry points take; 0 means launch, else the error
+int check_args(int bh, int sq, int sk, int dh) {
   if (dh < 1 || dh > FA_MAX_DH || bh > 65535 || bh < 0 || sq < 0 || sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<int64_t>(bh) * sq == 0) return 0;
-  const size_t smem = smem_bytes(dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + FA_BQ - 1) / FA_BQ, bh);
-  flash_attention_kernel<T>
-      <<<grid, FA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-          q, k, v, o, sq, sk, dh, scale, causal, window, softcap, q_offset);
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 }  // namespace
@@ -266,19 +1043,52 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* o, int bh, int sq, int sk, int dh, float scale,
                         int causal, int window, float softcap, int q_offset,
                         void* stream) {
-  return launch<float>(q, k, v, o, bh, sq, sk, dh, scale, causal, window,
-                       softcap, q_offset, stream);
+  if (const int bad = check_args(bh, sq, sk, dh)) return bad;
+  if (static_cast<int64_t>(bh) * sq == 0) return 0;
+  const size_t smem = smem_bytes(dh);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + FA_BQ - 1) / FA_BQ, bh);
+  flash_attention_kernel<<<grid, FA_THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, o, sq, sk, dh, scale, causal, window, softcap, q_offset);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The same over bf16 tensors (fp32 accumulation, bf16 output).
+// The same over bf16 tensors on the tensor cores (fp32 accumulation, bf16
+// output), dh padded to 64, 128, 224 or 256.
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int bh, int sq, int sk, int dh, float scale,
                          int causal, int window, float softcap, int q_offset,
                          void* stream) {
-  using bf = __nv_bfloat16;
-  return launch<bf>(static_cast<const bf*>(q), static_cast<const bf*>(k),
-                    static_cast<const bf*>(v), static_cast<bf*>(o), bh, sq,
-                    sk, dh, scale, causal, window, softcap, q_offset, stream);
+  if (const int bad = check_args(bh, sq, sk, dh)) return bad;
+  if (static_cast<int64_t>(bh) * sq == 0) return 0;
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  auto* op = static_cast<bf16*>(o);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dh <= 64)
+    return launch_wgmma<64>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
+                          window, softcap, q_offset, st);
+  if (dh <= 128)
+    return launch_wgmma<128>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
+                           window, softcap, q_offset, st);
+  if (dh <= 224)
+    return launch_wgmma<224>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
+                           window, softcap, q_offset, st);
+  return launch_wgmma<256>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
+                         window, softcap, q_offset, st);
+}
+
+// Dynamic shared memory (bytes) a bf16 launch at head dim dh takes.
+int flash_attention_bf16_smem(int dh) {
+  if (dh <= 64) return static_cast<int>(WgShape<64>::SMEM);
+  if (dh <= 128) return static_cast<int>(WgShape<128>::SMEM);
+  if (dh <= 224) return static_cast<int>(WgShape<224>::SMEM);
+  return static_cast<int>(WgShape<256>::SMEM);
 }
 
 }  // extern "C"

@@ -6,11 +6,14 @@ forward (the prefill) calls once per attention layer.  It computes
 attention with a causal mask, a sliding window, the logit soft-cap
 ``softcap * tanh(x / softcap)`` and ``q_offset``, by online softmax with the
 finite -1e30 sentinel; fully masked rows give 0.  Heads must already be
-GQA-repeated.  The CUDA kernel is ``csrc/flash_attention.cu::
-flash_attention_kernel``: bound by operations, a SIMT kernel with 64 query
-rows per block, 32-key steps staged in shared memory as fp32, and the
-running max, sum and output rows in registers; see the source note there.
-fp32 and bf16 inputs (fp32 accumulation), dh up to 256.
+GQA-repeated.  The CUDA kernels are in ``csrc/flash_attention.cu``: bound
+by operations.  bf16 runs ``flash_attention_wgmma_kernel`` on the tensor
+cores (wgmma for Q.K^T and P.V, 128 query rows a block in two warpgroups,
+64-key K/V tiles brought in by TMA on mbarriers, 2 K and 3 V stages, P
+split into two bf16 parts for the P.V product, dh padded to 64, 128, 224
+or 256); fp32 runs the SIMT ``flash_attention_kernel`` (64 query rows a
+block, fp32 throughout).  See the source note there.  fp32 accumulation in
+both, dh up to 256.
 
 A CPU tensor takes the plain PyTorch version below, with the reference's
 own split (``repro/kernels/ops.py:168-177``): the chunked form when
@@ -30,6 +33,22 @@ LAUNCHES = 0
 MAX_DH = 256
 _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+# The flash cases every check of this kernel runs (the unit tests, the card
+# tests, the smoke script, tools/emulate_flash_bf16.py): the reference's own
+# seven (tests/test_kernels.py), then several query blocks with a window and
+# a soft-cap, and rows whose window holds no key.  sq/sk: query/key rows,
+# w: window, cap: soft-cap, off: q_offset.
+FA_CASES = [
+    dict(sq=64, sk=64, w=0, cap=0.0, off=0, causal=True),
+    dict(sq=32, sk=32, w=17, cap=0.0, off=0, causal=True),
+    dict(sq=64, sk=64, w=0, cap=30.0, off=0, causal=True),
+    dict(sq=1, sk=70, w=0, cap=0.0, off=69, causal=True),
+    dict(sq=40, sk=56, w=0, cap=0.0, off=16, causal=True),
+    dict(sq=24, sk=24, w=0, cap=0.0, off=0, causal=False),
+    dict(sq=16, sk=144, w=48, cap=50.0, off=128, causal=True),
+    dict(sq=300, sk=300, w=100, cap=50.0, off=0, causal=True),
+    dict(sq=4, sk=8, w=3, cap=0.0, off=18, causal=True),    # all masked
+]
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,

@@ -24,15 +24,6 @@ from repro_torch.kernels import ref as tref
 
 from test_torch_kernels import _interpret_mode  # noqa: F401  (autouse)
 
-FA_CASES = [
-    dict(sq=64, sk=64, w=0, cap=0.0, off=0, causal=True),
-    dict(sq=32, sk=32, w=17, cap=0.0, off=0, causal=True),
-    dict(sq=64, sk=64, w=0, cap=30.0, off=0, causal=True),
-    dict(sq=1, sk=70, w=0, cap=0.0, off=69, causal=True),
-    dict(sq=40, sk=56, w=0, cap=0.0, off=16, causal=True),
-    dict(sq=24, sk=24, w=0, cap=0.0, off=0, causal=False),
-    dict(sq=16, sk=144, w=48, cap=50.0, off=128, causal=True),
-]
 DTYPES = {"float32": (jnp.float32, torch.float32, 5e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
 
@@ -49,7 +40,7 @@ def _f32(x):
                       np.float32)
 
 
-@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("case", tfa.FA_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_matches_reference(case, dtype):
     jdt, tdt, tol = DTYPES[dtype]
@@ -66,7 +57,7 @@ def test_flash_attention_matches_reference(case, dtype):
     np.testing.assert_allclose(_f32(got), _f32(dense), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("case", tfa.FA_CASES)
 def test_plain_forms_match_reference_forms(case):
     """Each plain form against its jnp twin in fp32, dh=32."""
     arrs = _qkv(case["sq"], case["sk"], 32, case["sk"])

@@ -62,6 +62,12 @@ def test_flash_attention_source_defines_the_wrapper_entry_points():
     cu = (PKG / "kernels" / "csrc" / "flash_attention.cu").read_text()
     wrapper = pathlib.Path(flash_attention.__file__).read_text()
     assert "flash_attention_kernel" in cu
+    # bf16 reaches only the tensor-core body, fp32 only the SIMT one
+    bf16_entry = cu[cu.index("int flash_attention_bf16("):]
+    assert "launch_wgmma<" in bf16_entry
+    assert "flash_attention_kernel<<<" not in bf16_entry
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in cu
+    assert "cp.async.bulk.tensor.3d" in cu
     assert set(flash_attention._ENTRIES.values()) == {
         "flash_attention_f32", "flash_attention_bf16"}
     for entry in flash_attention._ENTRIES.values():
@@ -112,3 +118,22 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert engine.ServeEngine(cpu, cfg).device == torch.device("cpu")
+
+
+def test_ptxas_summary_reads_registers_and_spills():
+    """The build's ptxas -v report, read per kernel."""
+    from repro_torch.kernels import _build
+    report = (
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPf\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, 412 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers, 412 bytes cmem[0]\n")
+    assert _build.ptxas_summary(report, "foo") == [dict(
+        kernel="_Z3fooPf", stack_bytes=8, spill_store_bytes=4,
+        spill_load_bytes=12, registers=255)]
+    assert [r["kernel"] for r in _build.ptxas_summary(report)] == [
+        "_Z3fooPf", "_Z3barPf"]
+    assert "-Xptxas=-v" in _build.NVCC_FLAGS
