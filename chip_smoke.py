@@ -8,8 +8,9 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
 1. device     -- nvidia-smi name and power limit, torch/CUDA versions, TF32.
 2. build      -- nvcc builds of ``src/repro_torch/kernels/csrc/distance.cu``
                  and ``flash_attention.cu``, started together; ptxas's
-                 registers, stack and spills for each flash kernel, and the
-                 bf16 kernel's dynamic shared memory per padded head dim.
+                 registers, stack and spills for each distance and flash
+                 kernel, and the bf16 flash kernel's dynamic shared memory
+                 per padded head dim.
 3. kernels    -- each CUDA kernel (fp32 and int8 gather, fp32 and int8
                  pairwise, flash attention) against its plain PyTorch
                  version on the card, at every shape the paths launch it
@@ -21,9 +22,12 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  and within one bf16 rounding in bf16 (rtol 2^-7, atol
                  1e-3), also in fp32 at the prefill's shape; kernel, plain
                  and library times (median of 5 timed batches, with their
-                 spread) beside the bound; the gathers' device time from a
-                 CUDA graph of 100 launches beside their wrapper-inclusive
-                 time; flash's achieved TFLOP/s, bound share and
+                 spread) beside the bound, the fp32 pairwise kernel at
+                 both ground-truth shapes (1000 x 50k and 1000 x 131072);
+                 the gathers' device time from a CUDA graph of 100
+                 launches beside their wrapper-inclusive time and the
+                 graph's own floor (a 1-element fill_); flash's achieved
+                 TFLOP/s, bound share and
                  special-function floor at four settings, with SDPA beside
                  it at soft-cap 0 (causal, and causal with an explicit
                  window mask).
@@ -34,7 +38,10 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  data (n=50k by default; the paper's corpora hold 1M
                  vectors), exact ground truth, then grouped (group_size=4,
                  ESO+EPO) and baseline (group_size=1) Vamana estimation of
-                 4 configs over ef in {10, 20, 40, 80}.
+                 4 configs over ef in {10, 20, 40, 80}; then, outside
+                 the counted window, exact_knn's time at the ground
+                 truth's shape split into the pairwise kernel and the
+                 stable sort (the ``exact_knn_split`` line).
 6. serve_exact -- the serving path on a scale-1 integer corpus (n=2000,
                  d=128): index built on the card and on the CPU, then
                  ``retrieval_attention_batched`` with hash visit state and
@@ -75,8 +82,9 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  max_seq 512): 8 requests of 32-token prompts, 32 new
                  tokens each; tokens/s and ms per decode step.
 
-Launch counters are zeroed just before each path (main, serve, and the LM
-phases) and read just after; every kernel of that path must have launched.
+Launch counters are zeroed just before each path (main, the serving
+ground truth ``serve_gt``, serve, and the LM phases) and read just after;
+every kernel of that path must have launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
@@ -251,6 +259,7 @@ def phase_build() -> None:
     emit("build", sources=[f"{n}.cu" for n in sources],
          seconds=time.perf_counter() - t0, nvcc_seconds=_build.BUILD_SECONDS,
          flags=_build.NVCC_FLAGS,
+         distance_ptxas=_build.ptxas_summary(_build.PTXAS.get("distance", "")),
          flash_ptxas=_build.ptxas_summary(
              _build.PTXAS.get("flash_attention", ""), "flash_attention"),
          flash_bf16_smem_bytes={dp: smem(dp) for dp in (64, 128, 224, 256)})
@@ -402,9 +411,11 @@ def _gather_sq8_row(gd, ops, ref, gen) -> dict:
     """int8 gather, slab and ids forms, at the serve path's shapes."""
     import torch
     err = 0.0
-    # the sq8 search's W=4 hop (k = W*Mx = 4*32), its entry distance, and
-    # a ragged shape off the char4 path
-    shapes = [(BLOCK, 128, 128), (BLOCK, 1, 128), (9, 21, 33)]
+    # the sq8 search's W=4 hop (k = W*Mx = 4*32), its entry distance, a
+    # ragged shape off the 16-byte path, k off the 16 candidates a warp,
+    # and d = 48 (three 16-byte chunks a row)
+    shapes = [(BLOCK, 128, 128), (BLOCK, 1, 128), (9, 21, 33),
+              (BLOCK, 37, 128), (9, 21, 48)]
     for (b, k, d) in shapes:
         n = N_CTX if d == 128 else 500
         for integer in (False, True):
@@ -468,8 +479,11 @@ def _gather_sq8_row(gd, ops, ref, gen) -> dict:
 def _pairwise_row(l2, ops, mlib, gen, n_corpus: int) -> dict:
     import torch
     perr = 0.0
-    # ragged, the main path's ground truth, the serving ground truth (ip)
-    shapes = [(37, 91, 50), (NQ, n_corpus, 128), (NQ, N_CTX, 128)]
+    # ragged, the main path's ground truth, the serving ground truth (ip),
+    # and shapes that straddle the kernel's tile on both axes or take d
+    # off its 16-deep steps
+    shapes = [(37, 91, 50), (NQ, n_corpus, 128), (NQ, N_CTX, 128),
+              (129, 1000, 128), (200, 130, 100), (1, 300, 4)]
     for (a, b_, d) in dict.fromkeys(shapes):
         for integer in (False, True):
             q = _data(gen, (a, d), integer)
@@ -487,19 +501,50 @@ def _pairwise_row(l2, ops, mlib, gen, n_corpus: int) -> dict:
                 if not integer:
                     perr = max(perr, err)
                 del got, want
-    q = _data(gen, (NQ, 128), False)
-    x = _data(gen, (n_corpus, 128), False)
-    times = timed_row(
-        lambda: l2.pairwise_distance(q, x, kernel="l2"),
-        lambda: l2.pairwise_distance_plain(q, x, "l2"),
-        lambda: torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist"))
-    nbytes = 4.0 * (NQ * 128 + n_corpus * 128 + NQ * n_corpus)
-    bms, by = bound_ms(nbytes, 2.0 * NQ * n_corpus * 128)
+    # operands that start 4 bytes past a 16-byte boundary: the kernel's
+    # 4-byte copies
+    for integer in (False, True):
+        q = _data(gen, (37, 128), integer)
+        x = _data(gen, (300, 128), integer)
+        buf = torch.empty(q.numel() + x.numel() + 1, device="cuda")
+        qm = buf[1:1 + q.numel()].view(q.shape)
+        xm = buf[1 + q.numel():].view(x.shape)
+        qm.copy_(q)
+        xm.copy_(x)
+        for kern in ("l2", "ip"):
+            err = _compare(f"pairwise misaligned {kern}",
+                           l2.pairwise_distance(qm, xm, kernel=kern),
+                           l2.pairwise_distance_plain(q, x, kern), integer)
+            if not integer:
+                perr = max(perr, err)
+
+    def timed(nx):
+        """Kernel, plain and ``torch.cdist`` at (NQ, nx, 128) l2, with the
+        bound and the share of it the kernel reaches; ``product_ms`` is
+        cuBLAS's fp32 q @ x.T alone (TF32 off), the kernel's product
+        without its norms and epilogue."""
+        q = _data(gen, (NQ, 128), False)
+        x = _data(gen, (nx, 128), False)
+        row = timed_row(
+            lambda: l2.pairwise_distance(q, x, kernel="l2"),
+            lambda: l2.pairwise_distance_plain(q, x, "l2"),
+            lambda: torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist"))
+        row["product_ms"], row["product_ms_spread"] = time_ms(
+            lambda: torch.mm(q, x.T))
+        nbytes = 4.0 * (NQ * 128 + nx * 128 + NQ * nx)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes,
+                                                    2.0 * NQ * nx * 128)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        return row
+
+    main = timed(n_corpus)
+    serve = timed(N_CTX)
     return dict(name="pairwise_distance", route="cuda",
                 source="src/repro_torch/kernels/csrc/distance.cu",
                 replaces="src/repro/kernels/l2_distance.py:56",
-                launches=0, max_abs_err=perr, **times, bound_ms=bms,
-                bound_by=by, shape=[NQ, n_corpus, 128], kernel_form="l2",
+                launches=0, max_abs_err=perr, **main,
+                shape=[NQ, n_corpus, 128], kernel_form="l2",
+                serve_shape=dict(shape=[NQ, N_CTX, 128], **serve),
                 shapes_checked=[list(x) for x in dict.fromkeys(shapes)],
                 library="torch.cdist (Euclidean, the square root of the l2 "
                         "form)")
@@ -726,6 +771,13 @@ def phase_kernels(n_corpus: int) -> list[dict]:
            _gather_sq8_row(gd, ops, ref, gen),
            _pairwise_sq8_row(l2, ops, ref, mlib, gen),
            _flash_row(fa, gen)]
+    # the graph harness's own floor: a 1-element fill_ per captured call,
+    # beside the gathers' device times
+    one = torch.zeros(1, device="cuda")
+    floor, floor_spread = graph_ms(lambda: one.fill_(1.0))
+    for row in out[1:3]:
+        row["graph_floor_ms"], row["graph_floor_ms_spread"] = (floor,
+                                                               floor_spread)
     torch.cuda.empty_cache()
     for row in out:
         emit("kernel", **row)
@@ -783,6 +835,27 @@ def read_counts(counters: dict) -> dict:
             counters.items()}
 
 
+def knn_split(data, queries) -> None:
+    """exact_knn's time at the main path's ground-truth shape, split into
+    the pairwise kernel and the stable sort of its (NQ, n) output."""
+    import torch
+    from repro_torch.core import knng
+    from repro_torch.kernels import l2_distance as l2
+    d2 = l2.pairwise_distance(queries, data, kernel="l2")
+    kernel_ms, kernel_spread = time_ms(
+        lambda: l2.pairwise_distance(queries, data, kernel="l2"))
+    sort_ms, sort_spread = time_ms(
+        lambda: torch.sort(d2, dim=-1, stable=True))
+    whole_ms, whole_spread = time_ms(
+        lambda: knng.exact_knn(data, queries, 10, device="cuda"))
+    emit("exact_knn_split", shape=[NQ, data.shape[0], data.shape[1]],
+         kernel_form="l2", k=10, kernel_ms=kernel_ms,
+         kernel_ms_spread=kernel_spread, sort_ms=sort_ms,
+         sort_ms_spread=sort_spread, exact_knn_ms=whole_ms,
+         exact_knn_ms_spread=whole_spread,
+         sort_share=sort_ms / whole_ms)
+
+
 def phase_main(n: int, counters: dict) -> dict:
     import torch
     from repro_torch.core import eval as evallib
@@ -812,6 +885,7 @@ def phase_main(n: int, counters: dict) -> dict:
     launches = read_counts(counters)
     syncs = search.HOST_SYNCS
 
+    knn_split(data, queries)
     # ground truth held against the plain version on a query subset
     sub = 32
     want = torch.sort(ref.pairwise_distance_ref(queries[:sub], data), dim=-1,
@@ -918,7 +992,8 @@ def phase_serve_exact() -> None:
 def serve_data():
     """The serving cell's keys, values and decode queries on the card, and
     its yardsticks: exact ip and cosine top-32 (pairwise kernel + stable
-    sort) and exact attention.  Made before any counted window."""
+    sort) and exact attention.  Its two pairwise launches are counted as
+    the ``serve_gt`` path."""
     import torch
     from repro_torch.core import knng
     from repro_torch.core.tuner import estimator
@@ -1358,7 +1433,13 @@ def main() -> int:
     phase_exact()
     by_path["main"] = phase_main(args.n, counters)
     phase_serve_exact()
+    zero_counts(counters)
     data = serve_data()
+    by_path["serve_gt"] = read_counts(counters)
+    if by_path["serve_gt"]["pairwise_distance"] != 2:
+        raise AssertionError(f"serve ground truth: "
+                             f"{by_path['serve_gt']['pairwise_distance']} "
+                             f"pairwise launches, expected 2 (ip, cosine)")
     # the index's default ip metric, then cosine on the same cache: on
     # this geometry the raw-ip graph traps every search near its entry,
     # in the reference as in the port (PERF.md, ROADMAP queue 3)

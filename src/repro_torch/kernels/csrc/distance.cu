@@ -23,36 +23,85 @@
 // 2. pairwise distance -- replaces the Pallas kernel
 //    repro/kernels/l2_distance.py::pairwise_distance (_dist_kernel).
 //      l2 = max(|q|^2 + |x|^2 - 2 q.x, 0), ip = 1 - q.x, (nq,d)x(nx,d)->(nq,nx)
-//    Bound: fp32 operations.  Ground truth at nq=1000, nx=100k, d=128 is
-//    2*nq*nx*d = 25.6 GFLOP, ~0.38 ms at the H100 SXM's 67 TFLOP/s fp32
-//    (the 400 MB output write takes ~0.12 ms).
-//    Design: a shared-memory tiled SIMT product, 64x64 output tile per
-//    256-thread block, 16-wide d steps, 4x4 outputs per thread in
-//    registers; 128 threads also accumulate the tile's row norms from the
-//    same shared tiles, and the epilogue forms the l2 / ip distance.  Full
-//    fp32 FMA: no tensor cores, no TF32.
+//    Bound: fp32 operations.  The estimation's ground truth at
+//    (1000, 50000, 128) is 2*nq*nx*d = 12.8 GFLOP, 0.191 ms at the H100
+//    SXM's 67 TFLOP/s fp32 (its 200 MB output takes 0.06 ms to write);
+//    the serving ground truth at (1000, 131072, 128) 0.50 ms.  Full fp32
+//    FMA: no tensor cores, no TF32 (ground truth must be bit-exact on
+//    integer data, and exact_knn's stable sort turns any other rounding
+//    into another tie order).
+//    Design (pairwise_f32_kernel): a register-tiled SIMT product fed by a
+//    cp.async ring.
+//    - 256 x 128 output tile per 256-thread block, a 16 x 8 register tile
+//      per thread (query rows 4*ty + {0..3} + 64*{0..3}, corpus rows
+//      4*tx + {0..3} + 64*{0,1}).  Each 16-byte shared-memory read carries
+//      4 k values of one row, so a 4-deep k chunk costs 16 + 8 reads for
+//      16 * 8 * 4 FMAs: 21 FMAs a read (5.3 a float), against 8 (2 a float)
+//      in the earlier 64 x 64 / 4 x 4 form.  An 8 x 8 tile (16 FMAs a
+//      read, the shared-memory pipe's own balance point against the FMA
+//      pipe) was slower on an H100.
+//    - Both operands are d-contiguous, so tiles keep the [row][k] layout
+//      and are read as float4s along k.  Rows are padded to 20 floats and
+//      the four 16-byte chunks of a row are XOR-swizzled by (row >> 3) & 3:
+//      the 8 lanes of a quarter warp then read 8 distinct bank groups
+//      (query-operand reads are broadcasts), and the per-row norm reads
+//      are conflict-free too; the copies into the ring are at most 2-way.
+//    - 16-deep k steps in a 4-stage ring of cp.async copies (16-byte
+//      copies, zero-filled past the edges through the copy's src-size):
+//      the loads of step s+3 are in flight during the FMAs of step s, with
+//      one __syncthreads a step.  122,880 bytes of dynamic shared memory,
+//      one block an SM at up to 255 registers.
+//    - For l2, every thread accumulates the norms of 1.5 tile rows on
+//      average (256 query rows, 128 corpus rows) from the same tiles; the
+//      epilogue forms max(qn + xn - 2 acc, 0) or 1 - acc and stores
+//      float4s where nx % 4 == 0, scalars on the ragged tail.
+//    - Blocks walk the row tiles of one column tile back to back, so a
+//      corpus tile is read from device memory once.
+//    - d % 4 != 0 or an operand base that is not 16-byte aligned takes the
+//      same kernel with 4-byte cp.async copies (VEC = false).
+//    What holds it back: the FMA pipe shares its issue slots and its time
+//    with the shared-memory reads and the per-step barrier; cuBLAS's own
+//    fp32 product of the same operands (torch.mm, TF32 off, no norms and
+//    no epilogue) is under 10% faster on an H100 (PERF.md), and a
+//    persistent form that overlapped the output's write with the next
+//    tile (TMA bulk stores) gained nothing.
 //
 // 3. gather distance, int8 -- replaces the Pallas kernel
 //    repro/kernels/gather_distance.py::gather_distance_sq8
 //    (_gather_dist_sq8_kernel).  Asymmetric distance computation against
-//    SQ8 codes: with qs = u * scale (pre-scaled once by the wrapper),
+//    SQ8 codes: with qs = u * scale (pre-scaled once by the caller),
 //      cross = <qs_b, codes(b,i)>,  l2 = max((cn + |u|^2) - 2 cross, 0),
 //      ip = 1 - cross,  cn = squared norm of the dequantized row,
 //    and the same cache pass-through and slab / ids forms as kernel 1.
 //    Bound: memory.  At the serving hop shape b=64, k=W*Mx=4*32=128, d=128
-//    it reads 1.05 MB of codes (~0.3 us at 3.35 TB/s): launch latency sets
-//    its time.  Design: kernel 1's, one warp per candidate, with char4 loads
-//    of the 128-byte code row against float4 loads of qs, fp32 FMAs and a
-//    shuffle reduction.  __dp4a does not apply: the per-dimension scale
-//    keeps qs in fp32.
+//    it moves 1.2 MB (~0.36 us at 3.35 TB/s), below one dependent round
+//    trip to device memory: its time is latency, so the design shortens
+//    the chain of dependent loads and keeps many loads in flight.
+//    Design (gather_distance_sq8_kernel):
+//    - one warp prices 16 candidates of one query; each 8-lane group owns
+//      4 of them, and a lane reads 16 bytes of a code row a load, so one
+//      warp instruction fetches 4 whole 128-byte rows;
+//    - each lane holds its 16 dimensions of the query's qs row in
+//      registers (4 float4s), read once a warp instead of once a
+//      candidate;
+//    - two serial round trips: the ids, mask bits, cached values and the
+//      query slice first, then every code-row load and every cn[row] load
+//      before any arithmetic;
+//    - a 3-step shuffle within each 8-lane group, and one coalesced store
+//      of the warp's 16 results;
+//    - d % 16 != 0, or a qs or code base that is not 16-byte aligned,
+//      takes the same kernel with byte loads (VEC = false).
+//    __dp4a does not apply: the per-dimension scale keeps qs in fp32.
 //
 // 4. pairwise distance, int8 -- replaces the Pallas kernel
 //    repro/kernels/l2_distance.py::pairwise_distance_sq8 (_dist_sq8_kernel).
-//    Kernel 2's tiled product instantiated for an int8 corpus: the code
-//    tile is converted to fp32 as it is stored in shared memory, and the
-//    l2 epilogue takes the precomputed norms (|q|^2 and the dequantized cn)
-//    instead of accumulating them.  Bound: fp32 operations, 33.6 GFLOP at
-//    (1000, 131072, 128), ~0.50 ms at 67 TFLOP/s.
+//    The earlier shared-memory tiled product (pairwise_distance_kernel:
+//    64x64 output tile, 16-wide d steps, 4x4 outputs per thread)
+//    instantiated for an int8 corpus: the code tile is converted to fp32
+//    as it is stored in shared memory, and the l2 epilogue takes the
+//    precomputed norms (|q|^2 and the dequantized cn).  Bound: fp32
+//    operations, 33.6 GFLOP at (1000, 131072, 128), ~0.50 ms at
+//    67 TFLOP/s.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -141,71 +190,150 @@ void launch_gather(const float* u, const float* rows, const int32_t* ids,
 // gather distance, int8 codes (ADC)
 // ---------------------------------------------------------------------------
 
-template <int KIND, bool VEC4>
-__global__ void gather_distance_sq8_kernel(const float* __restrict__ qs,
-                                           const float* __restrict__ qn,
-                                           const int8_t* __restrict__ codes,
-                                           const float* __restrict__ cn,
-                                           const int32_t* __restrict__ ids,
-                                           const float* __restrict__ cached,
-                                           const uint8_t* __restrict__ mask,
-                                           float* __restrict__ out,
-                                           int b, int k, int d) {
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= static_cast<int64_t>(b) * k) return;   // warp-uniform exit
-  // slab form: codes (b,k,d), cn (b,k) share the lane index; ids form:
-  // codes (n,d), cn (n) are indexed by the candidate id
-  const int64_t row = ids ? static_cast<int64_t>(ids[warp]) : warp;
-  if (!mask[warp] || row < 0) {                       // warp-uniform branch
-    if (lane == 0) out[warp] = cached[warp];
-    return;
+constexpr int SQ8_THREADS = 128;              // 4 warps a block
+constexpr int SQ8_SLOTS = 4;                  // candidates per 8-lane group
+constexpr int SQ8_CPW = 4 * SQ8_SLOTS;        // candidates per warp
+
+// acc + <q[0..15], the 16 int8 codes packed in w>
+__device__ __forceinline__ float dot16_s8(const int4 w, const float4 q0,
+                                          const float4 q1, const float4 q2,
+                                          const float4 q3, float acc) {
+  const int words[4] = {w.x, w.y, w.z, w.w};
+  const float4 qv[4] = {q0, q1, q2, q3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int v = words[i];   // bytes low to high: dimensions 4i .. 4i+3
+    acc = fmaf(qv[i].x, static_cast<float>(static_cast<int8_t>(v)), acc);
+    acc = fmaf(qv[i].y, static_cast<float>(static_cast<int8_t>(v >> 8)),
+               acc);
+    acc = fmaf(qv[i].z, static_cast<float>(static_cast<int8_t>(v >> 16)),
+               acc);
+    acc = fmaf(qv[i].w, static_cast<float>(v >> 24), acc);
   }
-  const int64_t qi = warp / k;
-  const int8_t* __restrict__ c = codes + row * d;
+  return acc;
+}
+
+// One warp: candidates [16 w', 16 w' + 16) of query qi; 8-lane group g
+// owns candidates i0 = 16 w' + 4 g + {0..3}.  VEC: d % 16 == 0 and 16-byte
+// aligned qs / codes bases, so lane s of a group reads 16-byte chunks
+// s, s + 8, ... of each code row.
+template <int KIND, bool VEC>
+__global__ void __launch_bounds__(SQ8_THREADS)
+gather_distance_sq8_kernel(const float* __restrict__ qs,
+                           const float* __restrict__ qn,
+                           const int8_t* __restrict__ codes,
+                           const float* __restrict__ cn,
+                           const int32_t* __restrict__ ids,
+                           const float* __restrict__ cached,
+                           const uint8_t* __restrict__ mask,
+                           float* __restrict__ out, int b, int k, int d) {
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & 7;
+  const int wpq = (k + SQ8_CPW - 1) / SQ8_CPW;      // warps per query
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * SQ8_THREADS + threadIdx.x) >> 5;
+  if (warp >= static_cast<int64_t>(b) * wpq) return;   // warp-uniform exit
+  const int64_t qi = warp / wpq;
+  const int i0 = static_cast<int>(warp - qi * wpq) * SQ8_CPW +
+                 (lane >> 3) * SQ8_SLOTS;
+  const int64_t base = qi * k;                       // flat index of (qi, 0)
   const float* __restrict__ q = qs + qi * d;
-  float acc = 0.f;
-  if (VEC4) {
-    const char4* c4 = reinterpret_cast<const char4*>(c);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    for (int j = lane; j < (d >> 2); j += 32) {
-      const char4 x = c4[j];
-      const float4 a = q4[j];
-      acc += a.x * static_cast<float>(x.x) + a.y * static_cast<float>(x.y) +
-             a.z * static_cast<float>(x.z) + a.w * static_cast<float>(x.w);
+
+  // round trip 1: the group's ids, mask bits and cached values (slab
+  // form: codes (b,k,d) and cn (b,k) share the lane index; ids form: codes
+  // (n,d) and cn (n) are indexed by the candidate id)
+  int64_t row[SQ8_SLOTS];
+  bool live[SQ8_SLOTS];
+  float keep[SQ8_SLOTS];
+#pragma unroll
+  for (int t = 0; t < SQ8_SLOTS; ++t) {
+    const bool in = i0 + t < k;
+    const int64_t li = base + i0 + t;
+    const int64_t r = !in ? -1 : ids ? static_cast<int64_t>(ids[li]) : li;
+    const bool m = in && mask[li] != 0;
+    live[t] = m && r >= 0;
+    row[t] = live[t] ? r : 0;
+    keep[t] = in ? cached[li] : 0.f;
+  }
+  const float qnorm = (KIND == KIND_L2) ? qn[qi] : 0.f;
+
+  // round trip 2: every code-row load and every norm load, then the FMAs
+  float cnv[SQ8_SLOTS];
+#pragma unroll
+  for (int t = 0; t < SQ8_SLOTS; ++t)
+    cnv[t] = (KIND == KIND_L2 && live[t]) ? cn[row[t]] : 0.f;
+  float acc[SQ8_SLOTS] = {0.f, 0.f, 0.f, 0.f};
+  if (VEC) {
+    const int nch = d >> 4;                          // 16-byte chunks a row
+    for (int c = sub; c < nch; c += 8) {
+      const float4* q4 = reinterpret_cast<const float4*>(q) + 4 * c;
+      const float4 a0 = q4[0], a1 = q4[1], a2 = q4[2], a3 = q4[3];
+      int4 w[SQ8_SLOTS];
+#pragma unroll
+      for (int t = 0; t < SQ8_SLOTS; ++t)
+        w[t] = live[t] ? reinterpret_cast<const int4*>(codes + row[t] * d)[c]
+                       : make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int t = 0; t < SQ8_SLOTS; ++t)
+        acc[t] = dot16_s8(w[t], a0, a1, a2, a3, acc[t]);
     }
   } else {
-    for (int j = lane; j < d; j += 32) acc += q[j] * static_cast<float>(c[j]);
+    for (int j = sub; j < d; j += 8) {
+      const float a = q[j];
+#pragma unroll
+      for (int t = 0; t < SQ8_SLOTS; ++t)
+        if (live[t])
+          acc[t] =
+              fmaf(a, static_cast<float>(codes[row[t] * d + j]), acc[t]);
+    }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0)
-    out[warp] = (KIND == KIND_L2) ? fmaxf((cn[row] + qn[qi]) - 2.f * acc, 0.f)
-                                  : 1.f - acc;
+  for (int t = 0; t < SQ8_SLOTS; ++t)
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      acc[t] += __shfl_xor_sync(0xffffffffu, acc[t], off);
+
+  // lane s < 4 of group g stores candidate i0 + s: the warp's 16 results
+  // go out in one coalesced store
+  if (sub < SQ8_SLOTS && i0 + sub < k) {
+    float a = acc[0], cv = cnv[0], kp = keep[0];
+    bool lv = live[0];
+#pragma unroll
+    for (int t = 1; t < SQ8_SLOTS; ++t)
+      if (sub == t) {
+        a = acc[t];
+        cv = cnv[t];
+        kp = keep[t];
+        lv = live[t];
+      }
+    out[base + i0 + sub] =
+        !lv ? kp
+            : (KIND == KIND_L2) ? fmaxf((cv + qnorm) - 2.f * a, 0.f)
+                                : 1.f - a;
+  }
 }
 
 template <int KIND>
 void launch_gather_sq8(const float* qs, const float* qn, const int8_t* codes,
                        const float* cn, const int32_t* ids,
                        const float* cached, const uint8_t* mask, float* out,
-                       int b, int k, int d, bool vec4, cudaStream_t stream) {
-  const int64_t threads = static_cast<int64_t>(b) * k * 32;
+                       int b, int k, int d, bool vec, cudaStream_t stream) {
+  const int64_t threads =
+      static_cast<int64_t>(b) * ((k + SQ8_CPW - 1) / SQ8_CPW) * 32;
   const unsigned grid =
-      static_cast<unsigned>((threads + GATHER_THREADS - 1) / GATHER_THREADS);
-  if (vec4)
+      static_cast<unsigned>((threads + SQ8_THREADS - 1) / SQ8_THREADS);
+  if (vec)
     gather_distance_sq8_kernel<KIND, true>
-        <<<grid, GATHER_THREADS, 0, stream>>>(qs, qn, codes, cn, ids, cached,
-                                              mask, out, b, k, d);
+        <<<grid, SQ8_THREADS, 0, stream>>>(qs, qn, codes, cn, ids, cached,
+                                           mask, out, b, k, d);
   else
     gather_distance_sq8_kernel<KIND, false>
-        <<<grid, GATHER_THREADS, 0, stream>>>(qs, qn, codes, cn, ids, cached,
-                                              mask, out, b, k, d);
+        <<<grid, SQ8_THREADS, 0, stream>>>(qs, qn, codes, cn, ids, cached,
+                                           mask, out, b, k, d);
 }
 
 // ---------------------------------------------------------------------------
-// pairwise distance
+// pairwise distance, int8 corpus: the earlier shared-memory tiled product
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;    // query rows per block
@@ -308,6 +436,230 @@ pairwise_distance_kernel(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// pairwise distance, fp32: register-tiled SIMT product on a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int PW_THREADS = 256;                 // 16 (tx) x 16 (ty) threads
+constexpr int PW_TY = PW_THREADS / 16;
+constexpr int PW_TM = 16;                       // query rows per thread
+constexpr int PW_TN = 8;                        // corpus rows per thread
+constexpr int PW_BM = PW_TY * PW_TM;            // 256 query rows a block
+constexpr int PW_BN = 16 * PW_TN;               // 128 corpus rows a block
+constexpr int PW_BK = 16;                       // d elements per ring stage
+constexpr int PW_LD = PW_BK + 4;                // padded row: 5 16-byte chunks
+constexpr int PW_STAGES = 4;
+constexpr int PW_STAGE_FLOATS = (PW_BM + PW_BN) * PW_LD;
+constexpr int PW_SMEM_BYTES = PW_STAGES * PW_STAGE_FLOATS * 4;   // 122,880
+// tile rows whose norm one thread accumulates
+constexpr int PW_NORMS = (PW_BM + PW_BN + PW_THREADS - 1) / PW_THREADS;
+
+// Float offset of 16-byte chunk c (k = 4c .. 4c+3) of tile row r: rows
+// padded to 20 floats, chunks XOR-swizzled by (r >> 3) & 3 (see the note
+// at the top of the file).
+__device__ __forceinline__ int pw_off(int r, int c) {
+  return r * PW_LD + ((c ^ ((r >> 3) & 3)) << 2);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16- or 4-byte async copy global -> shared; full == false zero-fills
+// (src-size 0: nothing is read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool full) {
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(full ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy k columns [k0, k0 + 16) of the block's query and corpus tiles into
+// one ring stage; rows past nq / nx and columns past d are zero-filled.
+template <bool VEC>
+__device__ __forceinline__ void pw_load_stage(float* stage,
+                                              const float* __restrict__ q,
+                                              const float* __restrict__ x,
+                                              int nq, int nx, int d,
+                                              int row0, int col0, int k0) {
+  constexpr int PER_ROW = VEC ? PW_BK / 4 : PW_BK;   // copies per tile row
+  constexpr int COPIES = (PW_BM + PW_BN) * PER_ROW;
+  static_assert(COPIES % PW_THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < COPIES / PW_THREADS; ++it) {
+    const int e = threadIdx.x + it * PW_THREADS;
+    const int rr = e / PER_ROW;                      // query rows, then corpus
+    const int kk = (e % PER_ROW) * (VEC ? 4 : 1);
+    const bool isx = rr >= PW_BM;
+    const int r = isx ? rr - PW_BM : rr;
+    const int g = (isx ? col0 : row0) + r;
+    const bool full = g < (isx ? nx : nq) && k0 + kk < d;
+    const float* src =
+        full ? (isx ? x : q) + static_cast<int64_t>(g) * d + k0 + kk : q;
+    float* dst = stage + (isx ? PW_BM * PW_LD : 0) + pw_off(r, kk >> 2) +
+                 (kk & 3);
+    cp_async<VEC ? 16 : 4>(dst, src, full);
+  }
+}
+
+template <int KIND, bool VEC>
+__global__ void __launch_bounds__(PW_THREADS, 1)
+pairwise_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                    float* __restrict__ out, int nq, int nx, int d) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ float norms[PW_BM + PW_BN];   // query rows, then corpus rows
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  // the row tiles of one column tile run back to back, so each corpus
+  // tile is read from device memory once
+  const int64_t lin =
+      static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int row0 = static_cast<int>(lin % gridDim.y) * PW_BM;
+  const int col0 = static_cast<int>(lin / gridDim.y) * PW_BN;
+
+  float acc[PW_TM][PW_TN];
+#pragma unroll
+  for (int i = 0; i < PW_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < PW_TN; ++j) acc[i][j] = 0.f;
+  // thread t: the norms of tile rows t, t + PW_THREADS, ... (query rows,
+  // then corpus rows)
+  float norm[PW_NORMS];
+#pragma unroll
+  for (int n = 0; n < PW_NORMS; ++n) norm[n] = 0.f;
+
+  const int steps = (d + PW_BK - 1) / PW_BK;
+#pragma unroll
+  for (int s = 0; s < PW_STAGES - 1; ++s) {
+    if (s < steps)
+      pw_load_stage<VEC>(ring + s * PW_STAGE_FLOATS, q, x, nq, nx, d, row0,
+                         col0, s * PW_BK);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<PW_STAGES - 2>();   // this thread's copies of step s
+    __syncthreads();                  // everyone's; step s-1's reads done
+    const int next = s + PW_STAGES - 1;
+    if (next < steps)
+      pw_load_stage<VEC>(ring + (next % PW_STAGES) * PW_STAGE_FLOATS, q, x,
+                         nq, nx, d, row0, col0, next * PW_BK);
+    cp_async_commit();
+
+    const float* qt = ring + (s % PW_STAGES) * PW_STAGE_FLOATS;
+    const float* xt = qt + PW_BM * PW_LD;
+    if (KIND == KIND_L2) {
+#pragma unroll
+      for (int n = 0; n < PW_NORMS; ++n) {
+        const int rr = tid + n * PW_THREADS;
+        if (rr < PW_BM + PW_BN) {
+          const float* nt = rr < PW_BM ? qt : xt;
+          const int r = rr < PW_BM ? rr : rr - PW_BM;
+#pragma unroll
+          for (int c = 0; c < PW_BK / 4; ++c) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(nt + pw_off(r, c));
+            norm[n] = fmaf(v.x, v.x, norm[n]);
+            norm[n] = fmaf(v.y, v.y, norm[n]);
+            norm[n] = fmaf(v.z, v.z, norm[n]);
+            norm[n] = fmaf(v.w, v.w, norm[n]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < PW_BK / 4; ++c) {
+      float4 bv[PW_TN];
+#pragma unroll
+      for (int j = 0; j < PW_TN; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(
+            xt + pw_off(4 * tx + (j & 3) + 64 * (j >> 2), c));
+#pragma unroll
+      for (int i = 0; i < PW_TM; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            qt + pw_off(4 * ty + (i & 3) + 4 * PW_TY * (i >> 2), c));
+#pragma unroll
+        for (int j = 0; j < PW_TN; ++j) {
+          acc[i][j] = fmaf(a.x, bv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, bv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, bv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, bv[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (KIND == KIND_L2) {
+#pragma unroll
+    for (int n = 0; n < PW_NORMS; ++n)
+      if (tid + n * PW_THREADS < PW_BM + PW_BN)
+        norms[tid + n * PW_THREADS] = norm[n];
+    __syncthreads();
+  }
+  const bool vec_out = (nx & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < PW_TM; ++i) {
+    const int rl = 4 * ty + (i & 3) + 4 * PW_TY * (i >> 2);
+    const int r = row0 + rl;
+    if (r >= nq) continue;
+    float* __restrict__ orow = out + static_cast<int64_t>(r) * nx;
+    const float qv = (KIND == KIND_L2) ? norms[rl] : 0.f;
+#pragma unroll
+    for (int h = 0; h < PW_TN / 4; ++h) {
+      const int cl = 4 * tx + 64 * h;
+      const int c = col0 + cl;
+      if (c >= nx) continue;
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = (KIND == KIND_L2) ? fmaxf(qv + norms[PW_BM + cl + u] -
+                                             2.f * acc[i][4 * h + u],
+                                         0.f)
+                                 : 1.f - acc[i][4 * h + u];
+      if (vec_out) {   // nx % 4 == 0 and c % 4 == 0: c + 3 < nx
+        *reinterpret_cast<float4*>(orow + c) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (c + u < nx) orow[c + u] = v[u];
+      }
+    }
+  }
+}
+
+template <int KIND>
+int launch_pairwise_f32(const float* q, const float* x, float* out, int nq,
+                        int nx, int d, cudaStream_t stream) {
+  const bool vec = d % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const auto kernel = vec ? pairwise_f32_kernel<KIND, true>
+                          : pairwise_f32_kernel<KIND, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PW_SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((nx + PW_BN - 1) / PW_BN, (nq + PW_BM - 1) / PW_BM);
+  kernel<<<grid, PW_THREADS, PW_SMEM_BYTES, stream>>>(q, x, out, nq, nx, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -332,36 +684,33 @@ int gather_distance_f32(const float* u, const float* rows, const int32_t* ids,
 }
 
 // Pairwise distance: q (nq,d), x (nx,d) -> out (nq,nx); kind 0 = l2, 1 = ip.
+// 16-byte copies when d % 4 == 0 and both bases are 16-byte aligned.
 int pairwise_distance_f32(const float* q, const float* x, float* out, int nq,
                           int nx, int d, int kind, void* stream) {
   if (static_cast<int64_t>(nq) * nx == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nx + BN - 1) / BN, (nq + BM - 1) / BM);
   if (kind == KIND_IP)
-    pairwise_distance_kernel<KIND_IP, float, false>
-        <<<grid, PAIR_THREADS, 0, s>>>(q, x, nullptr, nullptr, out, nq, nx, d);
-  else
-    pairwise_distance_kernel<KIND_L2, float, false>
-        <<<grid, PAIR_THREADS, 0, s>>>(q, x, nullptr, nullptr, out, nq, nx, d);
-  return static_cast<int>(cudaGetLastError());
+    return launch_pairwise_f32<KIND_IP>(q, x, out, nq, nx, d, s);
+  return launch_pairwise_f32<KIND_L2>(q, x, out, nq, nx, d, s);
 }
 
 // Gather distance against int8 codes, both forms.  qs (b,d) = u * scale,
 // qn (b) = |u|^2.  ids == nullptr selects the slab form (codes (b,k,d),
-// cn (b,k)); otherwise codes (n,d), cn (n) and ids (b,k) int32.
+// cn (b,k)); otherwise codes (n,d), cn (n) and ids (b,k) int32.  vec: d %
+// 16 == 0 and 16-byte aligned qs and codes (16-byte code loads).
 int gather_distance_sq8(const float* qs, const float* qn, const int8_t* codes,
                         const float* cn, const int32_t* ids,
                         const float* cached, const uint8_t* mask, float* out,
-                        int b, int k, int d, int kind, int vec4,
+                        int b, int k, int d, int kind, int vec,
                         void* stream) {
   if (static_cast<int64_t>(b) * k == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind == KIND_IP)
     launch_gather_sq8<KIND_IP>(qs, qn, codes, cn, ids, cached, mask, out, b,
-                               k, d, vec4 != 0, s);
+                               k, d, vec != 0, s);
   else
     launch_gather_sq8<KIND_L2>(qs, qn, codes, cn, ids, cached, mask, out, b,
-                               k, d, vec4 != 0, s);
+                               k, d, vec != 0, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,12 @@ which every hop of the quantized serving search calls:
 ``csrc/distance.cu::gather_distance_sq8_kernel`` prices fp32 queries
 pre-scaled by the SQ scale (``qs = u * scale``) against int8 codes, with
 the same two forms (``gather_distance_sq8``, ``gather_distance_sq8_ids``)
-and the same cache pass-through.
+and the same cache pass-through.  At the serving hop's 1.2 MB its time is
+latency, not bytes: one warp prices 16 candidates of one query, 8 lanes
+to a code row with 16-byte loads and the query's qs slice held in
+registers, and every code-row load is issued before any arithmetic (two
+dependent round trips: ids, then rows).  ``d % 16 != 0`` or a qs / codes
+base that is not 16-byte aligned takes the same kernel with byte loads.
 
 A CPU tensor takes the plain PyTorch version below; a CUDA tensor launches
 the kernel or raises.  ``LAUNCHES`` and ``LAUNCHES_SQ8`` count the fp32 and
@@ -87,7 +92,7 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"gather_distance: {name} must be contiguous")
 
 
-def _launch(entry, tensors, ids, cached, mask, kernel, b, k, d, vec4):
+def _launch(entry, tensors, ids, cached, mask, kernel, b, k, d, vec):
     """Check devices, allocate the output and launch one gather kernel.
 
     ``tensors`` are the entry point's leading arguments (queries, rows and,
@@ -109,7 +114,7 @@ def _launch(entry, tensors, ids, cached, mask, kernel, b, k, d, vec4):
         err = _entry(entry, len(ptrs) + 4)(
             *ptrs, ids.data_ptr() if ids is not None else None,
             cached.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            b, k, d, _KINDS[kernel], int(vec4), stream)
+            b, k, d, _KINDS[kernel], int(vec), stream)
     _build.check(err, entry)
     return out
 
@@ -126,10 +131,11 @@ def _launch_f32(u, rows, ids, cached, mask, kernel, b, k, d):
 
 def _launch_sq8(qs, qn, codes, cn, ids, cached, mask, kernel, b, k, d):
     global LAUNCHES_SQ8
-    vec4 = (d % 4 == 0 and qs.data_ptr() % 16 == 0
-            and codes.data_ptr() % 4 == 0)
+    # 16-byte code loads: whole 16-byte chunks of every row, aligned bases
+    vec16 = (d % 16 == 0 and qs.data_ptr() % 16 == 0
+             and codes.data_ptr() % 16 == 0)
     out = _launch("gather_distance_sq8", (qs, qn, codes, cn), ids, cached,
-                  mask, kernel, b, k, d, vec4)
+                  mask, kernel, b, k, d, vec16)
     LAUNCHES_SQ8 += 1
     return out
 

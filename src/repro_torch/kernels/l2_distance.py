@@ -4,13 +4,20 @@ Replaces the Pallas kernel ``repro/kernels/l2_distance.py::
 pairwise_distance`` (``_dist_kernel``), which computes the exact k-NN ground
 truth (``core/knng.py``).  Kernel forms: "l2" = max(||q||^2 + ||x||^2 -
 2 q.x, 0), "ip" = 1 - q.x.  The CUDA kernel is
-``csrc/distance.cu::pairwise_distance_kernel``: bound by fp32 operations,
-a shared-memory tiled SIMT product (64x64 output tile, 16-wide d steps,
-4x4 register tile per thread) with the row norms accumulated from the same
-tiles and an l2/ip epilogue; full fp32, no tensor cores, no TF32.
+``csrc/distance.cu::pairwise_f32_kernel``: bound by fp32 operations, a
+register-tiled SIMT product (256x128 output tile per 256-thread block, a
+16x8 register tile per thread read as float4s, 5.3 FMAs per float read
+from shared memory) fed by a 4-stage ring of 16-byte ``cp.async`` copies
+into padded, swizzled [row][k] tiles; all threads accumulate the l2 row
+norms from the same tiles, and the epilogue stores float4s where
+nx % 4 == 0.
+``d % 4 != 0`` or an operand that is not 16-byte aligned takes the same
+kernel with 4-byte copies.  Full fp32 FMA, no tensor cores, no TF32: the
+ground truth stays bit-exact on integer data.
 
 The int8 twin replaces ``pairwise_distance_sq8`` (``_dist_sq8_kernel``):
-the same tiled kernel instantiated for an int8 corpus
+the earlier shared-memory tiled kernel (64x64 output tile, 16-wide d
+steps, 4x4 register tile per thread) instantiated for an int8 corpus
 (``pairwise_distance_kernel<KIND, int8_t, true>``), whose code tile is
 converted to fp32 in shared memory and whose l2 epilogue takes the
 precomputed query and dequantized-row norms.  No path of the package calls
@@ -33,7 +40,9 @@ from repro_torch.kernels import ref
 LAUNCHES = 0
 LAUNCHES_SQ8 = 0
 _KINDS = {"l2": 0, "ip": 1}
-_MAX_NQ = 65535 * 64          # gridDim.y limit x query rows per block
+# gridDim.y's limit x each kernel's query rows per block
+_MAX_NQ = {"pairwise_distance_f32": 65535 * 256,
+           "pairwise_distance_sq8": 65535 * 64}
 
 
 def pairwise_distance_plain(q, x, kernel: str = "l2"):
@@ -56,9 +65,9 @@ def _launch(entry, operands, kernel, nq, nx, d):
                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"pairwise_distance: {name} must be contiguous")
-    if nq > _MAX_NQ:
-        raise ValueError(f"pairwise_distance: nq={nq} > {_MAX_NQ}; block "
-                         f"the queries")
+    if nq > _MAX_NQ[entry]:
+        raise ValueError(f"pairwise_distance: nq={nq} > {_MAX_NQ[entry]}; "
+                         f"block the queries")
     out = torch.empty((nq, nx), dtype=torch.float32, device=q.device)
     fn = getattr(_build.load("distance"), entry)
     if fn.argtypes is None:

@@ -151,6 +151,88 @@ def test_pairwise_sq8_kernel_matches_plain(card, shape, scale_one, kernel):
                                               quant.norms, kernel), scale_one)
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary (``buf[1:1 + n].view(shape)``): the kernels' scalar loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+# straddle the fp32 kernel's 128 x 128 tile on both axes; d off its
+# 16-deep steps; d = 4 with one query
+@pytest.mark.parametrize("shape", [(129, 1000, 128), (200, 130, 100),
+                                   (1, 300, 4)])
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("kernel", ["l2", "ip"])
+def test_pairwise_kernel_tile_edges(card, shape, integer, kernel):
+    from repro_torch.kernels import l2_distance as l2
+    nq, nx, d = shape
+    q = _data((nq, d), integer, 11, card)
+    x = _data((nx, d), integer, 12, card)
+    got = l2.pairwise_distance(q, x, kernel=kernel)
+    _check(got, l2.pairwise_distance_plain(q, x, kernel), integer)
+
+
+@pytest.mark.parametrize("operand", ["q", "x"])
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("kernel", ["l2", "ip"])
+def test_pairwise_kernel_misaligned_operand(card, operand, integer, kernel):
+    from repro_torch.kernels import l2_distance as l2
+    q = _data((37, 128), integer, 13, card)
+    x = _data((300, 128), integer, 14, card)
+    if operand == "q":
+        q = _misaligned(q)
+    else:
+        x = _misaligned(x)
+    got = l2.pairwise_distance(q, x, kernel=kernel)
+    _check(got, l2.pairwise_distance_plain(q, x, kernel), integer)
+
+
+# (b, k, d, case): k off the 16 candidates a warp; d = 48 (three 16-byte
+# chunks a row) and d = 33 (byte loads); a misaligned code base; every
+# lane masked; every id INVALID
+SQ8_EDGES = {"k37": (64, 37, 128), "d48": (9, 21, 48), "d33": (9, 21, 33),
+             "misaligned": (64, 128, 128), "all_masked": (64, 37, 128),
+             "all_invalid": (64, 37, 128)}
+
+
+@pytest.mark.parametrize("case", list(SQ8_EDGES))
+@pytest.mark.parametrize("scale_one", [False, True])
+@pytest.mark.parametrize("kernel", ["l2", "ip"])
+def test_gather_sq8_kernel_edges(card, case, scale_one, kernel):
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import ops, ref
+    b, k, d = SQ8_EDGES[case]
+    u, quant, ids, mask, cached = _int8_case(b, k, 300, d, scale_one, 15,
+                                             card)
+    codes = quant.codes
+    if case == "misaligned":
+        codes = _misaligned(codes)
+    elif case == "all_masked":
+        mask = torch.zeros_like(mask)
+    elif case == "all_invalid":
+        ids = torch.full_like(ids, -1)
+    qs, qn = ops.prescale(u, quant.scale, kernel)
+    got = gd.gather_distance_sq8_ids(qs, qn, codes, quant.norms, ids, cached,
+                                     mask, kernel=kernel)
+    _check(got, gd.gather_distance_sq8_ids_plain(
+        qs, qn, codes, quant.norms, ids, cached, mask, kernel), scale_one)
+    keep = ~mask | (ids < 0)
+    assert torch.equal(got[keep], cached[keep])
+    safe = ids.clamp_min(0).long()
+    slab, cn = codes[safe].contiguous(), quant.norms[safe].contiguous()
+    if case == "misaligned":
+        slab = _misaligned(slab)
+    got = gd.gather_distance_sq8(qs, qn, slab, cn, cached, mask,
+                                 kernel=kernel)
+    _check(got, ref.gather_distance_adc_ref(qs, qn, slab, cn, cached, mask,
+                                            kernel), scale_one)
+    assert torch.equal(got[~mask], cached[~mask])
+
+
 def test_card_build_equals_cpu_build_on_integer_data(card):
     from repro_torch.core import vamana
     data = _data((600, 16), True, 7, torch.device("cpu"))

@@ -54,6 +54,27 @@ def test_cuda_source_for_every_kernel_on_the_path():
         assert f'"{entry}"' in pathlib.Path(mod.__file__).read_text()
         assert getattr(mod, counter) >= 0
 
+    def body(head):
+        start = cu.index(head)
+        return cu[start:cu.index("\n}\n", start)]
+
+    # fp32 pairwise reaches only the cp.async-fed register-tiled body; the
+    # int8 pairwise keeps the earlier tiled template
+    f32 = body("int pairwise_distance_f32(")
+    assert "launch_pairwise_f32<" in f32
+    assert "pairwise_distance_kernel<" not in f32
+    assert "pairwise_f32_kernel<KIND, true>" in body(
+        "int launch_pairwise_f32(")
+    assert "cp.async.cg.shared.global" in cu
+    sq8 = body("int pairwise_distance_sq8(")
+    assert "pairwise_distance_kernel<KIND_L2, int8_t, true>" in sq8
+    assert "pairwise_distance_kernel<KIND_IP, int8_t, true>" in sq8
+    assert "pairwise_f32_kernel" not in sq8
+    # the int8 gather entry launches its 16-candidates-a-warp body
+    assert "launch_gather_sq8<" in body("int gather_distance_sq8(")
+    assert "gather_distance_sq8_kernel<KIND, true>" in body(
+        "void launch_gather_sq8(")
+
 
 def test_flash_attention_source_defines_the_wrapper_entry_points():
     """The flash wrapper names entry points that flash_attention.cu defines
