@@ -9,8 +9,9 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
 2. build      -- nvcc builds of ``src/repro_torch/kernels/csrc/distance.cu``
                  and ``flash_attention.cu``, started together; ptxas's
                  registers, stack and spills for each distance and flash
-                 kernel, and the bf16 flash kernel's dynamic shared memory
-                 per padded head dim.
+                 kernel (``pairwise_ptxas`` names each pairwise body by
+                 its template arguments), and the bf16 flash kernel's
+                 dynamic shared memory per padded head dim.
 3. kernels    -- each CUDA kernel (fp32 and int8 gather, fp32 and int8
                  pairwise, flash attention) against its plain PyTorch
                  version on the card, at every shape the paths launch it
@@ -23,14 +24,19 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  1e-3), also in fp32 at the prefill's shape; kernel, plain
                  and library times (median of 5 timed batches, with their
                  spread) beside the bound, the fp32 pairwise kernel at
-                 both ground-truth shapes (1000 x 50k and 1000 x 131072);
-                 the gathers' device time from a CUDA graph of 100
-                 launches beside their wrapper-inclusive time and the
-                 graph's own floor (a 1-element fill_); flash's achieved
-                 TFLOP/s, bound share and
-                 special-function floor at four settings, with SDPA beside
-                 it at soft-cap 0 (causal, and causal with an explicit
-                 window mask).
+                 both ground-truth shapes (1000 x 50k and 1000 x 131072)
+                 and the int8 one at 1000 x 131072, each beside cuBLAS's
+                 bare fp32 product of the same operands (``product_ms``);
+                 the pairwise kernels also at tile-straddling, ragged and
+                 misaligned shapes; the gathers' device time from a CUDA
+                 graph of 100 launches beside their wrapper-inclusive time
+                 and the graph's own floor (a 1-element fill_); flash's
+                 achieved TFLOP/s, bound share and special-function floor
+                 at four settings, with SDPA beside it at soft-cap 0
+                 (causal, and causal with an explicit window mask); the
+                 fp32 flash body (``fp32_body``) causal at soft-cap 0 at
+                 (1, 16, 8192, 224) and lm_width's (2, 16, 64, 224),
+                 beside its fp32-FMA bound and SDPA in fp32.
 4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
                  in [-4, 4]) built with 4 configs on the card and on the
                  CPU: identical graphs and counters; multi == single.
@@ -100,6 +106,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -222,6 +229,34 @@ def graph_ms(fn, n: int = 100, runs: int = 5) -> tuple[float, list]:
     return per[len(per) // 2], [per[0], per[-1]]
 
 
+@contextlib.contextmanager
+def card_sampled(row: dict):
+    """nvidia-smi's SM clock, its maximum, the power draw and the
+    temperature every 50 ms while the block runs; each one's [min, median,
+    max] goes into ``row["card"]``, so that times from two calls can be
+    read against the clocks they ran at."""
+    fields = ["clocks.sm", "clocks.max.sm", "power.draw", "temperature.gpu"]
+    proc = subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate(timeout=60)
+    samples = []
+    for line in text.splitlines():
+        try:
+            samples.append([float(v) for v in line.split(",")])
+        except ValueError:
+            continue                  # a line cut by the terminate
+    cols = [sorted(c) for c in zip(*[v for v in samples
+                                     if len(v) == len(fields)])]
+    row["card"] = dict(samples=len(cols[0]) if cols else 0, **{
+        f: [c[0], c[len(c) // 2], c[-1]] for f, c in zip(fields, cols)})
+
+
 def timed_row(kernel_fn, plain_fn, library_fn=None, reps: int = 20) -> dict:
     """Kernel, plain and library times, interleaved in one call."""
     ms, spread = time_ms(kernel_fn, reps)
@@ -256,13 +291,36 @@ def phase_build() -> None:
     _, flash = _build.load_all(sources)
     smem = flash.flash_attention_bf16_smem
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    distance = _build.ptxas_summary(_build.PTXAS.get("distance", ""))
     emit("build", sources=[f"{n}.cu" for n in sources],
          seconds=time.perf_counter() - t0, nvcc_seconds=_build.BUILD_SECONDS,
          flags=_build.NVCC_FLAGS,
-         distance_ptxas=_build.ptxas_summary(_build.PTXAS.get("distance", "")),
+         pairwise_ptxas=pairwise_bodies(distance),
+         distance_ptxas=distance,
          flash_ptxas=_build.ptxas_summary(
              _build.PTXAS.get("flash_attention", ""), "flash_attention"),
          flash_bf16_smem_bytes={dp: smem(dp) for dp in (64, 128, 224, 256)})
+
+
+def pairwise_bodies(rows: list[dict]) -> list[dict]:
+    """ptxas's registers and spills of each pairwise_f32_kernel
+    instantiation, named by its template arguments (form, corpus type,
+    16-byte query copies, 16-byte code copies)."""
+    out = []
+    for row in rows:
+        m = re.search(r"pairwise_f32_kernelILi(\d)E([af])Lb([01])ELb([01])E",
+                      row["kernel"])
+        if m:
+            form, xt, vec, cvec = m.groups()
+            out.append(dict(
+                body=f"{('l2', 'ip')[int(form)]} "
+                     f"{dict(f='fp32', a='int8')[xt]} corpus, "
+                     f"{'16' if vec == '1' else '4'}-byte query copies"
+                     + ("" if xt == "f" else
+                        f", {'16-byte' if cvec == '1' else 'byte'} codes"),
+                **{k: row.get(k) for k in ("registers", "spill_store_bytes",
+                                           "spill_load_bytes")}))
+    return out
 
 
 def _data(gen, shape, integer: bool):
@@ -483,7 +541,8 @@ def _pairwise_row(l2, ops, mlib, gen, n_corpus: int) -> dict:
     # and shapes that straddle the kernel's tile on both axes or take d
     # off its 16-deep steps
     shapes = [(37, 91, 50), (NQ, n_corpus, 128), (NQ, N_CTX, 128),
-              (129, 1000, 128), (200, 130, 100), (1, 300, 4)]
+              (129, 1000, 128), (257, 1000, 128), (200, 130, 100),
+              (1, 300, 4)]
     for (a, b_, d) in dict.fromkeys(shapes):
         for integer in (False, True):
             q = _data(gen, (a, d), integer)
@@ -537,12 +596,14 @@ def _pairwise_row(l2, ops, mlib, gen, n_corpus: int) -> dict:
         row["bound_share"] = row["bound_ms"] / row["ms"]
         return row
 
-    main = timed(n_corpus)
-    serve = timed(N_CTX)
+    card = {}
+    with card_sampled(card):
+        main = timed(n_corpus)
+        serve = timed(N_CTX)
     return dict(name="pairwise_distance", route="cuda",
                 source="src/repro_torch/kernels/csrc/distance.cu",
                 replaces="src/repro/kernels/l2_distance.py:56",
-                launches=0, max_abs_err=perr, **main,
+                launches=0, max_abs_err=perr, **main, **card,
                 shape=[NQ, n_corpus, 128], kernel_form="l2",
                 serve_shape=dict(shape=[NQ, N_CTX, 128], **serve),
                 shapes_checked=[list(x) for x in dict.fromkeys(shapes)],
@@ -553,8 +614,11 @@ def _pairwise_row(l2, ops, mlib, gen, n_corpus: int) -> dict:
 def _pairwise_sq8_row(l2, ops, ref, mlib, gen) -> dict:
     import torch
     err = 0.0
-    # ragged, and the serving ground truth's shape over the int8 view
-    shapes = [(37, 91, 50), (NQ, N_CTX, 128)]
+    # ragged, the serving ground truth's shape over the int8 view, shapes
+    # that straddle the 256 x 128 tile on both axes, take d off the 16-deep
+    # step and off 16-byte code rows, or hold one query at d = 4
+    shapes = [(37, 91, 50), (NQ, N_CTX, 128), (257, 300, 128),
+              (200, 130, 100), (1, 300, 4)]
     for (a, n, d) in shapes:
         for integer in (False, True):
             quant = _int8_corpus(gen, n, d, integer)
@@ -571,24 +635,58 @@ def _pairwise_sq8_row(l2, ops, ref, mlib, gen) -> dict:
                 if not integer:
                     err = max(err, e)
                 del got, want
+    # codes that start 1 byte past a 16-byte boundary: the byte loads
+    misaligned = [(37, 300, 128), (200, 130, 100)]
+    for (a, n, d) in misaligned:
+        for integer in (False, True):
+            quant = _int8_corpus(gen, n, d, integer)
+            buf = torch.empty(quant.codes.numel() + 1, dtype=torch.int8,
+                              device="cuda")
+            codes = buf[1:].view(quant.codes.shape)
+            codes.copy_(quant.codes)
+            for kern in ("l2", "ip"):
+                qs, qn = ops.prescale(_int8_queries(gen, (a, d), integer),
+                                      quant.scale, kern)
+                e = _compare(f"pairwise sq8 misaligned {kern} {(a, n, d)}",
+                             l2.pairwise_distance_sq8(qs, qn, codes,
+                                                      quant.norms,
+                                                      kernel=kern),
+                             ref.pairwise_distance_adc_ref(
+                                 qs, qn, quant.codes, quant.norms, kern),
+                             integer)
+                if not integer:
+                    err = max(err, e)
     quant = _int8_corpus(gen, N_CTX, 128, False)
     qs, qn = ops.prescale(_int8_queries(gen, (NQ, 128), False), quant.scale,
                           "l2")
-    times = timed_row(
-        lambda: l2.pairwise_distance_sq8(qs, qn, quant.codes, quant.norms,
-                                         kernel="l2"),
-        lambda: ref.pairwise_distance_adc_ref(qs, qn, quant.codes,
-                                              quant.norms, "l2"))
+    # cuBLAS's fp32 product of the same operands, the corpus already
+    # widened (the widening not timed), TF32 off: the yardstick row 2 has
+    wide = quant.codes.float()
+    card = {}
+    with card_sampled(card):
+        times = timed_row(
+            lambda: l2.pairwise_distance_sq8(qs, qn, quant.codes,
+                                             quant.norms, kernel="l2"),
+            lambda: ref.pairwise_distance_adc_ref(qs, qn, quant.codes,
+                                                  quant.norms, "l2"))
+        times["product_ms"], times["product_ms_spread"] = time_ms(
+            lambda: torch.mm(qs, wide.T))
+    del wide
     nbytes = 4.0 * (NQ * 128 + NQ + N_CTX + NQ * N_CTX) + N_CTX * 128
     bms, by = bound_ms(nbytes, 2.0 * NQ * N_CTX * 128)
     return dict(name="pairwise_distance_sq8", route="cuda",
                 source="src/repro_torch/kernels/csrc/distance.cu",
                 replaces="src/repro/kernels/l2_distance.py:118",
-                launches=0, max_abs_err=err, **times, bound_ms=bms,
-                bound_by=by, shape=[NQ, N_CTX, 128], kernel_form="l2",
+                launches=0, max_abs_err=err, **times, **card, bound_ms=bms,
+                bound_by=by, bound_share=bms / times["ms"],
+                shape=[NQ, N_CTX, 128], kernel_form="l2",
                 shapes_checked=[list(x) for x in shapes],
-                library="none: torch.matmul of the upcast codes needs an "
-                        "upcast and an epilogue besides, not one call",
+                misaligned_codes_checked=[list(x) for x in misaligned],
+                body="pairwise_f32_kernel<KIND, int8_t, VEC, CVEC>: codes "
+                     "staged as int8 and widened once per tile",
+                library="none: no single PyTorch call computes the function; "
+                        "product_ms is torch.mm of qs and the widened codes "
+                        "alone (TF32 off), which the port never calls",
                 path="none: no path of either package calls it")
 
 
@@ -707,6 +805,8 @@ def _flash_row(fa, gen) -> dict:
     lib_w = timed(window, 0.0, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=wmask))
     del q, k, v, wmask
+    fp32 = [_flash_f32_timed(fa, gen, b, s_, cfg_h, cfg_dh)
+            for (b, s_) in ((1, PREFILL_S), (WIDTH_B, WIDTH_S))]
     # an estimate beside the measurements, kept off the kernels line: the
     # rate is an assumed 16 MUFU operations a clock on each SM
     emit("flash_sfu_floor", sfu_ops_per_s=sfu_rate,
@@ -738,12 +838,47 @@ def _flash_row(fa, gen) -> dict:
                     library_ms=lib_w["library_ms"],
                     library_ms_spread=lib_w["library_ms_spread"],
                     **settings(lib_w)),
+                fp32_body=fp32,
                 library="torch.nn.functional.scaled_dot_product_attention("
                         "is_causal=True) at softcap 0 and no window: the "
                         "nearest library call, not the same function (it "
                         "cannot soft-cap); window_setting holds SDPA with "
                         "an explicit causal-window mask at softcap 0",
                 shapes_checked=checked)
+
+
+def _flash_f32_timed(fa, gen, b: int, s: int, h: int, dh: int) -> dict:
+    """The fp32 SIMT flash body (flash_attention_kernel; it runs only in
+    parity checks), causal at soft-cap 0, where SDPA in fp32 computes the
+    same function: checked against its plain version, then timed beside
+    it and SDPA, with its bound at the fp32 FMA rate."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v = (torch.randn((b, h, s, dh), generator=gen, device="cuda")
+               for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = FA_TOL["float32"]
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"flash_attention fp32 {(b, h, s, dh)} causal: "
+                             f"max err {err} beyond rtol {rtol}, atol {atol}")
+    del got, want
+    row = timed_row(lambda: fa.flash_attention(q, k, v, causal=True),
+                    lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True),
+                    reps=2 if s >= 4096 else 20)
+    flops = 4.0 * b * h * _attended_pairs(s, s, True, 0, 0) * dh
+    row["bound_ms"], row["bound_by"] = bound_ms(4.0 * 4 * q.numel(), flops)
+    row["tflops"] = flops / (row["ms"] * 1e9)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    del q, k, v
+    return dict(shape=[b, h, s, s, dh], dtype="float32", causal=True,
+                window=0, softcap=0.0, max_abs_err=err, **row,
+                library="torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True) in fp32")
 
 
 def sfu_ops_per_s() -> float:

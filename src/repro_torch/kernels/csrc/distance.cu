@@ -1,7 +1,9 @@
 // Distance kernels for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Four kernels: the fp32 pair carries FastPGT's estimation path and the
-// serving re-rank; the int8 (SQ8) pair carries the quantized serving search.
+// serving re-rank; the int8 (SQ8) pair carries the quantized serving search
+// (the int8 pairwise kernel is reached only from checks, as in the
+// reference).
 //
 // 1. gather distance -- replaces the Pallas kernel
 //    repro/kernels/gather_distance.py::gather_distance (_gather_dist_kernel).
@@ -30,8 +32,8 @@
 //    FMA: no tensor cores, no TF32 (ground truth must be bit-exact on
 //    integer data, and exact_knn's stable sort turns any other rounding
 //    into another tie order).
-//    Design (pairwise_f32_kernel): a register-tiled SIMT product fed by a
-//    cp.async ring.
+//    Design (pairwise_f32_kernel<KIND, float, VEC, false>): a
+//    register-tiled SIMT product fed by a cp.async ring.
 //    - 256 x 128 output tile per 256-thread block, a 16 x 8 register tile
 //      per thread (query rows 4*ty + {0..3} + 64*{0..3}, corpus rows
 //      4*tx + {0..3} + 64*{0,1}).  Each 16-byte shared-memory read carries
@@ -95,13 +97,43 @@
 //
 // 4. pairwise distance, int8 -- replaces the Pallas kernel
 //    repro/kernels/l2_distance.py::pairwise_distance_sq8 (_dist_sq8_kernel).
-//    The earlier shared-memory tiled product (pairwise_distance_kernel:
-//    64x64 output tile, 16-wide d steps, 4x4 outputs per thread)
-//    instantiated for an int8 corpus: the code tile is converted to fp32
-//    as it is stored in shared memory, and the l2 epilogue takes the
-//    precomputed norms (|q|^2 and the dequantized cn).  Bound: fp32
-//    operations, 33.6 GFLOP at (1000, 131072, 128), ~0.50 ms at
-//    67 TFLOP/s.
+//    With qs = q * scale (pre-scaled once by the caller), qn = |q|^2 and cn
+//    the dequantized-row norms,
+//      cross = <qs_i, codes_j>,  l2 = max((cn + qn) - 2 cross, 0),
+//      ip = 1 - cross,  (nq,d) x (nx,d) int8 -> (nq,nx).
+//    Bound: fp32 operations, 2*nq*nx*d = 33.6 GFLOP at (1000, 131072, 128),
+//    0.5008 ms at 67 TFLOP/s (its 524 MB output takes 0.16 ms to write,
+//    the codes 17 MB).  Full fp32 FMAs: the per-dimension scale keeps qs in
+//    fp32 (no __dp4a, no int8 MMA, no TF32), and integer data stays
+//    bit-exact.
+//    Design: kernel 2's body with the corpus type as a parameter
+//    (pairwise_f32_kernel<KIND, int8_t, VEC, CVEC>): the same tiles,
+//    register tile, swizzled [row][k] fp32 layout, block order and float4
+//    epilogue, and
+//    - the codes staged as int8: one 16-byte cp.async a corpus row a step
+//      into a 4-stage side ring of 2 KB stages (131,072 bytes of shared
+//      memory in all);
+//    - each code converted once, never in the FMA loop: a stage's codes are
+//      widened into the fp32 corpus tile of the same ring stage, 8 codes a
+//      thread, exactly (a byte permute forms the float 2^23 + (c + 128),
+//      one fsub takes 2^23 + 128 off): 2,048 conversions against 524,288
+//      FMAs a block a step.  Converting at the read instead would cost 32
+//      conversions per 512 FMAs a thread, and int -> fp32 issues at an
+//      eighth of the FMA rate;
+//    - step s + 1's codes are widened at the end of step s, after its
+//      FMAs, so a step still takes one __syncthreads (one more before the
+//      loop, for step 0's codes).  The codes run one step ahead of the
+//      query tile, in the same commit group, so step s's wait for its own
+//      copies also covers step s + 1's codes and the copies keep kernel
+//      2's lead of three steps (waiting for step s + 1's whole group, a
+//      lead of two, ran slower: PERF.md);
+//    - no norms in the loop: qn and cn go straight to shared memory while
+//      the first copies are in flight, for the l2 epilogue;
+//    - d % 16 != 0 or a code base that is not 16-byte aligned takes byte
+//      loads of the codes (CVEC = false; an int8 row of d = 50 starts at
+//      byte 50 r, where no 4-byte copy is legal), issued before a step's
+//      FMAs and stored into the side ring after them; the query tile keeps
+//      kernel 2's VEC rule.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -109,6 +141,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -333,111 +367,8 @@ void launch_gather_sq8(const float* qs, const float* qn, const int8_t* codes,
 }
 
 // ---------------------------------------------------------------------------
-// pairwise distance, int8 corpus: the earlier shared-memory tiled product
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64;    // query rows per block
-constexpr int BN = 64;    // corpus rows per block
-constexpr int BK = 16;    // d elements per shared-memory step
-constexpr int PAIR_THREADS = 256;
-
-// XT is the corpus type (float, or int8_t codes converted as they are
-// stored in shared memory).  PRENORM takes the l2 norms from qn / xn (the
-// int8 form's |q|^2 and dequantized-row norms) instead of accumulating them
-// from the tiles.
-template <int KIND, typename XT, bool PRENORM>
-__global__ void __launch_bounds__(PAIR_THREADS)
-pairwise_distance_kernel(const float* __restrict__ q,
-                         const XT* __restrict__ x,
-                         const float* __restrict__ qn,
-                         const float* __restrict__ xn,
-                         float* __restrict__ out, int nq, int nx, int d) {
-  __shared__ float qs[BK][BM + 4];   // transposed tiles: [d step][row]
-  __shared__ float xs[BK][BN + 4];
-  __shared__ float qnorm[BM];
-  __shared__ float xnorm[BN];
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;           // 16 x 16 threads, 4 x 4 outputs each
-  const int tx = tid % 16;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float norm = 0.f;   // threads 0..63: query row norms, 64..127: corpus rows
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += PAIR_THREADS) {
-      const int r = e / BK, kk = e % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      qs[kk][r] = (gr < nq && gk < d)
-                      ? q[static_cast<int64_t>(gr) * d + gk] : 0.f;
-      const int gc = col0 + r;
-      xs[kk][r] = (gc < nx && gk < d)
-                      ? static_cast<float>(x[static_cast<int64_t>(gc) * d + gk])
-                      : 0.f;
-    }
-    __syncthreads();
-    if (KIND == KIND_L2 && !PRENORM) {
-      if (tid < BM) {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) norm += qs[kk][tid] * qs[kk][tid];
-      } else if (tid < BM + BN) {
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk)
-          norm += xs[kk][tid - BM] * xs[kk][tid - BM];
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = xs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bv[j];
-    }
-    __syncthreads();
-  }
-  if (KIND == KIND_L2) {
-    if (PRENORM) {
-      if (tid < BM)
-        qnorm[tid] = (row0 + tid < nq) ? qn[row0 + tid] : 0.f;
-      else if (tid < BM + BN)
-        xnorm[tid - BM] = (col0 + tid - BM < nx) ? xn[col0 + tid - BM] : 0.f;
-    } else {
-      if (tid < BM) qnorm[tid] = norm;
-      else if (tid < BM + BN) xnorm[tid - BM] = norm;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= nq) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c >= nx) continue;
-      float v;
-      if (KIND == KIND_L2)
-        v = fmaxf(qnorm[ty * 4 + i] + xnorm[tx * 4 + j] - 2.f * acc[i][j], 0.f);
-      else
-        v = 1.f - acc[i][j];
-      out[static_cast<int64_t>(r) * nx + c] = v;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// pairwise distance, fp32: register-tiled SIMT product on a cp.async ring
+// pairwise distance in fp32 arithmetic over an fp32 or an int8 corpus:
+// register-tiled SIMT product on a cp.async ring
 // ---------------------------------------------------------------------------
 
 constexpr int PW_THREADS = 256;                 // 16 (tx) x 16 (ty) threads
@@ -451,7 +382,11 @@ constexpr int PW_LD = PW_BK + 4;                // padded row: 5 16-byte chunks
 constexpr int PW_STAGES = 4;
 constexpr int PW_STAGE_FLOATS = (PW_BM + PW_BN) * PW_LD;
 constexpr int PW_SMEM_BYTES = PW_STAGES * PW_STAGE_FLOATS * 4;   // 122,880
-// tile rows whose norm one thread accumulates
+// an int8 corpus adds a side ring of code tiles: 128 rows x 16 codes a stage
+constexpr int PW_CODE_STAGE = PW_BN * PW_BK;                      // 2,048
+constexpr int PW_SQ8_SMEM_BYTES =
+    PW_SMEM_BYTES + PW_STAGES * PW_CODE_STAGE;                    // 131,072
+// tile rows whose norm one thread accumulates (or, int8, reads)
 constexpr int PW_NORMS = (PW_BM + PW_BN + PW_THREADS - 1) / PW_THREADS;
 
 // Float offset of 16-byte chunk c (k = 4c .. 4c+3) of tile row r: rows
@@ -468,7 +403,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16- or 4-byte async copy global -> shared; full == false zero-fills
 // (src-size 0: nothing is read)
 template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool full) {
   if (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -489,23 +424,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy k columns [k0, k0 + 16) of the block's query and corpus tiles into
-// one ring stage; rows past nq / nx and columns past d are zero-filled.
-template <bool VEC>
+// Copy k columns [k0, k0 + 16) of the block's first ROWS tile rows (query
+// rows, then corpus rows) into one ring stage; rows past nq / nx and
+// columns past d are zero-filled.  An int8 corpus copies its query rows
+// only (ROWS = PW_BM); its codes go through the side ring.
+template <bool VEC, int ROWS = PW_BM + PW_BN>
 __device__ __forceinline__ void pw_load_stage(float* stage,
                                               const float* __restrict__ q,
                                               const float* __restrict__ x,
                                               int nq, int nx, int d,
                                               int row0, int col0, int k0) {
   constexpr int PER_ROW = VEC ? PW_BK / 4 : PW_BK;   // copies per tile row
-  constexpr int COPIES = (PW_BM + PW_BN) * PER_ROW;
+  constexpr int COPIES = ROWS * PER_ROW;
   static_assert(COPIES % PW_THREADS == 0, "whole copies per thread");
 #pragma unroll
   for (int it = 0; it < COPIES / PW_THREADS; ++it) {
     const int e = threadIdx.x + it * PW_THREADS;
     const int rr = e / PER_ROW;                      // query rows, then corpus
     const int kk = (e % PER_ROW) * (VEC ? 4 : 1);
-    const bool isx = rr >= PW_BM;
+    const bool isx = ROWS > PW_BM && rr >= PW_BM;
     const int r = isx ? rr - PW_BM : rr;
     const int g = (isx ? col0 : row0) + r;
     const bool full = g < (isx ? nx : nq) && k0 + kk < d;
@@ -517,10 +454,79 @@ __device__ __forceinline__ void pw_load_stage(float* stage,
   }
 }
 
-template <int KIND, bool VEC>
+// 16-byte copies of the codes of k columns [k0, k0 + 16) of the block's
+// 128 corpus rows into one side-ring stage (d % 16 == 0, 16-byte aligned
+// codes); rows past nx are zero-filled.
+__device__ __forceinline__ void pw_copy_codes(int8_t* cstage,
+                                              const int8_t* __restrict__ x,
+                                              int nx, int d, int col0,
+                                              int k0) {
+  const int r = threadIdx.x;
+  if (r < PW_BN) {
+    const int g = col0 + r;
+    const bool full = g < nx;
+    cp_async<16>(cstage + PW_BK * r,
+                 full ? x + static_cast<int64_t>(g) * d + k0 : x, full);
+  }
+}
+
+// The byte-load form of pw_copy_codes: thread t reads codes
+// k0 + 8 (t & 1) + {0..7} of corpus row t >> 1, zero past nx and d, packed
+// low byte first; pw_store_codes puts them into a side-ring stage.
+__device__ __forceinline__ uint2 pw_fetch_codes(const int8_t* __restrict__ x,
+                                                int nx, int d, int col0,
+                                                int k0) {
+  const int g = col0 + (threadIdx.x >> 1);
+  const int kk = k0 + 8 * (threadIdx.x & 1);
+  uint32_t w[2] = {0u, 0u};
+  if (g < nx) {
+    const int8_t* __restrict__ src = x + static_cast<int64_t>(g) * d;
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (kk + b < d)
+        w[b >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(src[kk + b]))
+                     << (8 * (b & 3));
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+__device__ __forceinline__ void pw_store_codes(int8_t* cstage, uint2 w) {
+  *reinterpret_cast<uint2*>(cstage + 8 * threadIdx.x) = w;
+}
+
+// Widen one side-ring stage into the fp32 corpus tile xt: thread t converts
+// the 4 codes of chunk t & 3 of rows t >> 2 and 64 + (t >> 2).  Exact for
+// every int8 c: a byte permute forms the float 2^23 + (c + 128), and one
+// fsub takes 2^23 + 128 off.
+__device__ __forceinline__ void pw_widen(float* xt, const int8_t* cstage) {
+#pragma unroll
+  for (int p = 0; p < PW_BN * PW_BK / 4 / PW_THREADS; ++p) {
+    const int e = threadIdx.x + p * PW_THREADS;
+    const int r = e >> 2, c = e & 3;
+    const uint32_t w =
+        *reinterpret_cast<const uint32_t*>(cstage + PW_BK * r + 4 * c) ^
+        0x80808080u;   // each byte c + 128
+    float4 v;
+    v.x = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650)) - 8388736.f;
+    v.y = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7651)) - 8388736.f;
+    v.z = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7652)) - 8388736.f;
+    v.w = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7653)) - 8388736.f;
+    *reinterpret_cast<float4*>(xt + pw_off(r, c)) = v;
+  }
+}
+
+// XT: the corpus type, float or int8_t (SQ8 codes).  VEC: 16-byte copies
+// of the query tile (and of an fp32 corpus tile), else 4-byte copies.
+// CVEC (int8 only): 16-byte copies of the codes, else byte loads.  qn / xn
+// (int8 only): the l2 norms of the query rows and the dequantized corpus
+// rows, read instead of accumulated from the tiles.
+template <int KIND, typename XT, bool VEC, bool CVEC>
 __global__ void __launch_bounds__(PW_THREADS, 1)
-pairwise_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                    float* __restrict__ out, int nq, int nx, int d) {
+pairwise_f32_kernel(const float* __restrict__ q, const XT* __restrict__ x,
+                    float* __restrict__ out, int nq, int nx, int d,
+                    const float* __restrict__ qn,
+                    const float* __restrict__ xn) {
+  constexpr bool SQ8 = std::is_same<XT, int8_t>::value;
   extern __shared__ __align__(16) float ring[];
   __shared__ float norms[PW_BM + PW_BN];   // query rows, then corpus rows
 
@@ -539,31 +545,88 @@ pairwise_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < PW_TN; ++j) acc[i][j] = 0.f;
   // thread t: the norms of tile rows t, t + PW_THREADS, ... (query rows,
-  // then corpus rows)
+  // then corpus rows); an int8 corpus reads its norms instead
   float norm[PW_NORMS];
 #pragma unroll
   for (int n = 0; n < PW_NORMS; ++n) norm[n] = 0.f;
+  // int8: the code side ring after the fp32 ring; its stage s holds the
+  // codes that are widened into the corpus tile of ring stage s
+  int8_t* const codes = reinterpret_cast<int8_t*>(ring + PW_STAGES *
+                                                  PW_STAGE_FLOATS);
 
   const int steps = (d + PW_BK - 1) / PW_BK;
+  // int8: the codes run one step ahead of the query tile, in the same
+  // commit group (group g holds the query tile of step g and the codes of
+  // step g + 1; group 0 also step 0's), so that step s's wait also covers
+  // the codes of step s + 1, which step s widens.  Codes of step t go to
+  // side-ring stage t % PW_STAGES: 16-byte copies, or byte loads stored
+  // at once.
 #pragma unroll
   for (int s = 0; s < PW_STAGES - 1; ++s) {
-    if (s < steps)
-      pw_load_stage<VEC>(ring + s * PW_STAGE_FLOATS, q, x, nq, nx, d, row0,
-                         col0, s * PW_BK);
+    if (s < steps) {
+      if constexpr (SQ8) {
+        pw_load_stage<VEC, PW_BM>(ring + s * PW_STAGE_FLOATS, q, nullptr,
+                                  nq, nx, d, row0, col0, s * PW_BK);
+        for (int t = s == 0 ? 0 : s + 1; t <= s + 1 && t < steps; ++t) {
+          if constexpr (CVEC)
+            pw_copy_codes(codes + t * PW_CODE_STAGE, x, nx, d, col0,
+                          t * PW_BK);
+          else
+            pw_store_codes(codes + t * PW_CODE_STAGE,
+                           pw_fetch_codes(x, nx, d, col0, t * PW_BK));
+        }
+      } else {
+        pw_load_stage<VEC>(ring + s * PW_STAGE_FLOATS, q, x, nq, nx, d,
+                           row0, col0, s * PW_BK);
+      }
+    }
     cp_async_commit();
+  }
+  if constexpr (SQ8) {
+    // the l2 norms go straight to norms[] while the copies are in flight;
+    // the barrier below publishes them to the epilogue
+    if (KIND == KIND_L2)
+      for (int rr = tid; rr < PW_BM + PW_BN; rr += PW_THREADS) {
+        const bool isx = rr >= PW_BM;
+        const int g = (isx ? col0 - PW_BM : row0) + rr;
+        norms[rr] = g < (isx ? nx : nq) ? (isx ? xn : qn)[g] : 0.f;
+      }
+    // step 0's codes are widened before the loop, step s + 1's during
+    // step s
+    cp_async_wait<PW_STAGES - 2>();
+    __syncthreads();
+    if (steps > 0) pw_widen(ring + PW_BM * PW_LD, codes);
   }
   for (int s = 0; s < steps; ++s) {
     cp_async_wait<PW_STAGES - 2>();   // this thread's copies of step s
     __syncthreads();                  // everyone's; step s-1's reads done
     const int next = s + PW_STAGES - 1;
-    if (next < steps)
-      pw_load_stage<VEC>(ring + (next % PW_STAGES) * PW_STAGE_FLOATS, q, x,
-                         nq, nx, d, row0, col0, next * PW_BK);
+    uint2 held = make_uint2(0u, 0u);   // int8 byte loads of step next + 1
+    if constexpr (SQ8) {
+      if (next < steps)
+        pw_load_stage<VEC, PW_BM>(ring + (next % PW_STAGES) *
+                                             PW_STAGE_FLOATS,
+                                  q, nullptr, nq, nx, d, row0, col0,
+                                  next * PW_BK);
+      // side-ring stage s % PW_STAGES: its codes (step s) were widened
+      // during step s - 1, before this step's barrier
+      if (next + 1 < steps) {
+        if constexpr (CVEC)
+          pw_copy_codes(codes + (s % PW_STAGES) * PW_CODE_STAGE, x, nx, d,
+                        col0, (next + 1) * PW_BK);
+        else
+          held = pw_fetch_codes(x, nx, d, col0, (next + 1) * PW_BK);
+      }
+    } else {
+      if (next < steps)
+        pw_load_stage<VEC>(ring + (next % PW_STAGES) * PW_STAGE_FLOATS, q,
+                           x, nq, nx, d, row0, col0, next * PW_BK);
+    }
     cp_async_commit();
 
     const float* qt = ring + (s % PW_STAGES) * PW_STAGE_FLOATS;
     const float* xt = qt + PW_BM * PW_LD;
-    if (KIND == KIND_L2) {
+    if (KIND == KIND_L2 && !SQ8) {
 #pragma unroll
       for (int n = 0; n < PW_NORMS; ++n) {
         const int rr = tid + n * PW_THREADS;
@@ -602,10 +665,19 @@ pairwise_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
         }
       }
     }
+    if constexpr (SQ8)
+      if (s + 1 < steps)
+        pw_widen(ring + ((s + 1) % PW_STAGES) * PW_STAGE_FLOATS +
+                     PW_BM * PW_LD,
+                 codes + ((s + 1) % PW_STAGES) * PW_CODE_STAGE);
+    // the byte loads were in flight during the FMAs
+    if constexpr (SQ8 && !CVEC)
+      if (next + 1 < steps)
+        pw_store_codes(codes + (s % PW_STAGES) * PW_CODE_STAGE, held);
   }
   cp_async_wait<0>();
 
-  if (KIND == KIND_L2) {
+  if (KIND == KIND_L2 && !SQ8) {
 #pragma unroll
     for (int n = 0; n < PW_NORMS; ++n)
       if (tid + n * PW_THREADS < PW_BM + PW_BN)
@@ -644,20 +716,55 @@ pairwise_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
   }
 }
 
+// Opt in to the ring's dynamic shared memory, then one block per
+// 256 x 128 output tile on the caller's stream.
+template <int KIND, typename XT, bool VEC, bool CVEC>
+int launch_pairwise(const float* q, const XT* x, float* out, int nq, int nx,
+                    int d, const float* qn, const float* xn,
+                    cudaStream_t stream) {
+  constexpr int smem = std::is_same<XT, int8_t>::value ? PW_SQ8_SMEM_BYTES
+                                                       : PW_SMEM_BYTES;
+  const auto kernel = pairwise_f32_kernel<KIND, XT, VEC, CVEC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((nx + PW_BN - 1) / PW_BN, (nq + PW_BM - 1) / PW_BM);
+  kernel<<<grid, PW_THREADS, smem, stream>>>(q, x, out, nq, nx, d, qn, xn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 template <int KIND>
 int launch_pairwise_f32(const float* q, const float* x, float* out, int nq,
                         int nx, int d, cudaStream_t stream) {
-  const bool vec = d % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const auto kernel = vec ? pairwise_f32_kernel<KIND, true>
-                          : pairwise_f32_kernel<KIND, false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PW_SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nx + PW_BN - 1) / PW_BN, (nq + PW_BM - 1) / PW_BM);
-  kernel<<<grid, PW_THREADS, PW_SMEM_BYTES, stream>>>(q, x, out, nq, nx, d);
-  return static_cast<int>(cudaGetLastError());
+  if (d % 4 == 0 && aligned16(q) && aligned16(x))
+    return launch_pairwise<KIND, float, true, false>(q, x, out, nq, nx, d,
+                                                     nullptr, nullptr,
+                                                     stream);
+  return launch_pairwise<KIND, float, false, false>(q, x, out, nq, nx, d,
+                                                    nullptr, nullptr, stream);
+}
+
+// The query tile keeps the fp32 rule (d % 4, 16-byte qs); the codes take
+// 16-byte copies only where d % 16 == 0 and their base is 16-byte aligned
+// (an int8 row of d = 50 starts at byte 50 r), and a query tile on 4-byte
+// copies takes byte loads of the codes too.
+template <int KIND>
+int launch_pairwise_sq8(const float* qs, const float* qn,
+                        const int8_t* codes, const float* cn, float* out,
+                        int nq, int nx, int d, cudaStream_t stream) {
+  const bool vec = d % 4 == 0 && aligned16(qs);
+  if (vec && d % 16 == 0 && aligned16(codes))
+    return launch_pairwise<KIND, int8_t, true, true>(qs, codes, out, nq, nx,
+                                                     d, qn, cn, stream);
+  if (vec)
+    return launch_pairwise<KIND, int8_t, true, false>(qs, codes, out, nq,
+                                                      nx, d, qn, cn, stream);
+  return launch_pairwise<KIND, int8_t, false, false>(qs, codes, out, nq, nx,
+                                                     d, qn, cn, stream);
 }
 
 }  // namespace
@@ -721,14 +828,9 @@ int pairwise_distance_sq8(const float* qs, const float* qn,
                           int nq, int nx, int d, int kind, void* stream) {
   if (static_cast<int64_t>(nq) * nx == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nx + BN - 1) / BN, (nq + BM - 1) / BM);
   if (kind == KIND_IP)
-    pairwise_distance_kernel<KIND_IP, int8_t, true>
-        <<<grid, PAIR_THREADS, 0, s>>>(qs, codes, qn, cn, out, nq, nx, d);
-  else
-    pairwise_distance_kernel<KIND_L2, int8_t, true>
-        <<<grid, PAIR_THREADS, 0, s>>>(qs, codes, qn, cn, out, nq, nx, d);
-  return static_cast<int>(cudaGetLastError());
+    return launch_pairwise_sq8<KIND_IP>(qs, qn, codes, cn, out, nq, nx, d, s);
+  return launch_pairwise_sq8<KIND_L2>(qs, qn, codes, cn, out, nq, nx, d, s);
 }
 
 }  // extern "C"

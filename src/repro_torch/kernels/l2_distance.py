@@ -16,13 +16,15 @@ kernel with 4-byte copies.  Full fp32 FMA, no tensor cores, no TF32: the
 ground truth stays bit-exact on integer data.
 
 The int8 twin replaces ``pairwise_distance_sq8`` (``_dist_sq8_kernel``):
-the earlier shared-memory tiled kernel (64x64 output tile, 16-wide d
-steps, 4x4 register tile per thread) instantiated for an int8 corpus
-(``pairwise_distance_kernel<KIND, int8_t, true>``), whose code tile is
-converted to fp32 in shared memory and whose l2 epilogue takes the
-precomputed query and dequantized-row norms.  No path of the package calls
-it (the reference reaches it only from its own checks); it is held against
-its plain version on the card.
+the same body instantiated for an int8 corpus
+(``pairwise_f32_kernel<KIND, int8_t, ...>``), with the same tiles,
+register tile, swizzled layout, block order and epilogue.  The codes are
+staged as int8 (16-byte ``cp.async`` copies into a side ring, or byte
+loads where ``d % 16 != 0`` or the codes are not 16-byte aligned) and
+widened to fp32 once per tile, exactly, as their stage lands; the l2
+epilogue takes the precomputed query and dequantized-row norms.  No path
+of the package calls it (the reference reaches it only from its own
+checks); it is held against its plain version on the card.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel or raises.  ``LAUNCHES`` and ``LAUNCHES_SQ8`` count the fp32 and the
@@ -40,9 +42,8 @@ from repro_torch.kernels import ref
 LAUNCHES = 0
 LAUNCHES_SQ8 = 0
 _KINDS = {"l2": 0, "ip": 1}
-# gridDim.y's limit x each kernel's query rows per block
-_MAX_NQ = {"pairwise_distance_f32": 65535 * 256,
-           "pairwise_distance_sq8": 65535 * 64}
+# gridDim.y's limit x the kernels' 256 query rows per block
+_MAX_NQ = 65535 * 256
 
 
 def pairwise_distance_plain(q, x, kernel: str = "l2"):
@@ -65,8 +66,8 @@ def _launch(entry, operands, kernel, nq, nx, d):
                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"pairwise_distance: {name} must be contiguous")
-    if nq > _MAX_NQ[entry]:
-        raise ValueError(f"pairwise_distance: nq={nq} > {_MAX_NQ[entry]}; "
+    if nq > _MAX_NQ:
+        raise ValueError(f"pairwise_distance: nq={nq} > {_MAX_NQ}; "
                          f"block the queries")
     out = torch.empty((nq, nx), dtype=torch.float32, device=q.device)
     fn = getattr(_build.load("distance"), entry)

@@ -134,18 +134,27 @@ def test_gather_sq8_kernel_matches_plain(card, shape, scale_one, kernel):
     assert torch.equal(got[~mask], cached[~mask])
 
 
-@pytest.mark.parametrize("shape", [(37, 91, 50), (200, 1000, 128)])
+# ragged; the ground truth's width; straddling the 256 x 128 tile on both
+# axes; d off the 16-deep step and off 16-byte code rows; d = 4 with one
+# query.  Misaligned codes take the byte loads at every d.
+@pytest.mark.parametrize("shape", [(37, 91, 50), (200, 1000, 128),
+                                   (257, 300, 128), (200, 130, 100),
+                                   (1, 300, 4)])
+@pytest.mark.parametrize("codes_at", ["aligned", "misaligned"])
 @pytest.mark.parametrize("scale_one", [False, True])
 @pytest.mark.parametrize("kernel", ["l2", "ip"])
-def test_pairwise_sq8_kernel_matches_plain(card, shape, scale_one, kernel):
+def test_pairwise_sq8_kernel_matches_plain(card, shape, codes_at, scale_one,
+                                           kernel):
     from repro_torch.kernels import l2_distance as l2
     from repro_torch.kernels import ops, ref
     nq, nx, d = shape
     u, quant, _, _, _ = _int8_case(nq, 1, nx, d, scale_one, 9, card)
     qs, qn = ops.prescale(u, quant.scale, kernel)
+    codes = quant.codes
+    if codes_at == "misaligned":
+        codes = _misaligned(codes)
     before = l2.LAUNCHES_SQ8
-    got = l2.pairwise_distance_sq8(qs, qn, quant.codes, quant.norms,
-                                   kernel=kernel)
+    got = l2.pairwise_distance_sq8(qs, qn, codes, quant.norms, kernel=kernel)
     assert l2.LAUNCHES_SQ8 == before + 1
     _check(got, ref.pairwise_distance_adc_ref(qs, qn, quant.codes,
                                               quant.norms, kernel), scale_one)
@@ -161,10 +170,11 @@ def _misaligned(t):
     return out
 
 
-# straddle the fp32 kernel's 128 x 128 tile on both axes; d off its
-# 16-deep steps; d = 4 with one query
-@pytest.mark.parametrize("shape", [(129, 1000, 128), (200, 130, 100),
-                                   (1, 300, 4)])
+# straddle the fp32 kernel's 256 x 128 tile on both axes (257 rows; 129
+# rows straddled the earlier 128-row tile); d off its 16-deep steps; d = 4
+# with one query
+@pytest.mark.parametrize("shape", [(129, 1000, 128), (257, 1000, 128),
+                                   (200, 130, 100), (1, 300, 4)])
 @pytest.mark.parametrize("integer", [False, True])
 @pytest.mark.parametrize("kernel", ["l2", "ip"])
 def test_pairwise_kernel_tile_edges(card, shape, integer, kernel):

@@ -44,12 +44,11 @@ def test_cuda_source_for_every_kernel_on_the_path():
             (gather_distance, "gather_distance_f32",
              "gather_distance_kernel", "LAUNCHES"),
             (l2_distance, "pairwise_distance_f32",
-             "pairwise_distance_kernel", "LAUNCHES"),
+             "pairwise_f32_kernel", "LAUNCHES"),
             (gather_distance, "gather_distance_sq8",
              "gather_distance_sq8_kernel", "LAUNCHES_SQ8"),
             (l2_distance, "pairwise_distance_sq8",
-             "pairwise_distance_kernel<KIND_L2, int8_t, true>",
-             "LAUNCHES_SQ8")):
+             "pairwise_f32_kernel", "LAUNCHES_SQ8")):
         assert f"int {entry}(" in cu and body in cu, entry
         assert f'"{entry}"' in pathlib.Path(mod.__file__).read_text()
         assert getattr(mod, counter) >= 0
@@ -58,18 +57,35 @@ def test_cuda_source_for_every_kernel_on_the_path():
         start = cu.index(head)
         return cu[start:cu.index("\n}\n", start)]
 
-    # fp32 pairwise reaches only the cp.async-fed register-tiled body; the
-    # int8 pairwise keeps the earlier tiled template
+    # both pairwise entries reach the one cp.async-fed register-tiled body,
+    # fp32 with an fp32 corpus and int8 with an int8 one; the earlier tiled
+    # template is gone
+    assert "pairwise_distance_kernel" not in cu
+    assert "pairwise_f32_kernel<KIND, XT, VEC, CVEC>" in body(
+        "int launch_pairwise(")
+    assert "cp.async.cg.shared.global" in cu
     f32 = body("int pairwise_distance_f32(")
     assert "launch_pairwise_f32<" in f32
-    assert "pairwise_distance_kernel<" not in f32
-    assert "pairwise_f32_kernel<KIND, true>" in body(
-        "int launch_pairwise_f32(")
-    assert "cp.async.cg.shared.global" in cu
+    assert "launch_pairwise_sq8<" not in f32
+    f32_launch = body("int launch_pairwise_f32(")
+    assert "launch_pairwise<KIND, float, true, false>" in f32_launch
+    assert "int8_t" not in f32_launch
     sq8 = body("int pairwise_distance_sq8(")
-    assert "pairwise_distance_kernel<KIND_L2, int8_t, true>" in sq8
-    assert "pairwise_distance_kernel<KIND_IP, int8_t, true>" in sq8
-    assert "pairwise_f32_kernel" not in sq8
+    assert "launch_pairwise_sq8<KIND_L2>" in sq8
+    assert "launch_pairwise_sq8<KIND_IP>" in sq8
+    sq8_launch = body("int launch_pairwise_sq8(")
+    assert "launch_pairwise<KIND, int8_t, true, true>" in sq8_launch
+    assert "launch_pairwise<KIND, int8_t, false, false>" in sq8_launch
+    assert "float, " not in sq8_launch.split("{", 1)[1]
+    # the int8 body widens its codes once per tile, not in the FMA loop
+    kernel = body("pairwise_f32_kernel(const float* __restrict__ q")
+    assert "pw_widen(" in kernel and "__byte_perm" in body(
+        "__device__ __forceinline__ void pw_widen(")
+    start = kernel.index("    for (int c = 0; c < PW_BK / 4; ++c) {\n"
+                         "      float4 bv")
+    fma_loop = kernel[start:kernel.index("\n    }\n", start)]
+    assert "fmaf(" in fma_loop
+    assert "pw_widen" not in fma_loop and "int8" not in fma_loop
     # the int8 gather entry launches its 16-candidates-a-warp body
     assert "launch_gather_sq8<" in body("int gather_distance_sq8(")
     assert "gather_distance_sq8_kernel<KIND, true>" in body(
