@@ -6,14 +6,16 @@
 Phases, each printing one JSON line; any failure ends in a non-zero exit:
 
 1. device     -- nvidia-smi name and power limit, torch/CUDA versions, TF32.
-2. build      -- nvcc builds of ``src/repro_torch/kernels/csrc/distance.cu``
-                 and ``flash_attention.cu``, started together; ptxas's
-                 registers, stack and spills for each distance and flash
-                 kernel (``pairwise_ptxas`` names each pairwise body by
-                 its template arguments), and the bf16 flash kernel's
-                 dynamic shared memory per padded head dim.
+2. build      -- nvcc builds of every source under
+                 ``src/repro_torch/kernels/csrc/`` (``distance.cu``,
+                 ``flash_attention.cu``, ``prune.cu``), started together;
+                 ptxas's registers, stack and spills for each distance,
+                 flash and prune kernel (``pairwise_ptxas`` names each
+                 pairwise body by its template arguments), and the bf16
+                 flash kernel's dynamic shared memory per padded head dim.
 3. kernels    -- each CUDA kernel (fp32 and int8 gather, fp32 and int8
-                 pairwise, flash attention) against its plain PyTorch
+                 pairwise, flash attention, the prune recurrence) against
+                 its plain PyTorch
                  version on the card, at every shape the paths launch it
                  with: the distance kernels exact on integer data (for the
                  int8 kernels: integer keys whose every dimension reaches
@@ -36,28 +38,43 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  (causal, and causal with an explicit window mask); the
                  fp32 flash body (``fp32_body``) causal at soft-cap 0 at
                  (1, 16, 8192, 224) and lm_width's (2, 16, 64, 224),
-                 beside its fp32-FMA bound and SDPA in fp32.
+                 beside its fp32-FMA bound and SDPA in fp32; the prune
+                 recurrence bit for bit at the forward prune's (256, 128)
+                 and the reverse re-prune's (8192, 48) (and two edge
+                 shapes), on geometric and random inputs, m_limit reached
+                 and not, timed at both path shapes beside the bytes its
+                 data needs.
 4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
-                 in [-4, 4]) built with 4 configs on the card and on the
-                 CPU: identical graphs and counters; multi == single.
+                 in [-4, 4]) built with 4 configs: the fused build on the
+                 card == the per_batch build on the card == the fused
+                 build on the CPU (graphs, edge lengths, counters);
+                 multi == single.
 5. main       -- FastPGT's estimation path at SIFT's width d=128: clustered
                  data (n=50k by default; the paper's corpora hold 1M
                  vectors), exact ground truth, then grouped (group_size=4,
                  ESO+EPO) and baseline (group_size=1) Vamana estimation of
-                 4 configs over ef in {10, 20, 40, 80}; then, outside
-                 the counted window, exact_knn's time at the ground
-                 truth's shape split into the pairwise kernel and the
-                 stable sort (the ``exact_knn_split`` line).
+                 4 configs over ef in {10, 20, 40, 80}, every build fused
+                 (each batch step replays captured CUDA graphs); beside
+                 it, one per_batch grouped estimation on the same data:
+                 identical recall sweeps and counters, its hops a batch
+                 (the histogram that fixed ``search.HOP_CHUNK``), and the
+                 fused build's host syncs equal to the chunks those hops
+                 need, its replays one a batch, no stage function called
+                 from Python after capture; then, outside the counted
+                 window, exact_knn's time at the ground truth's shape
+                 split into the pairwise kernel and the stable sort (the
+                 ``exact_knn_split`` line).
 6. serve_exact -- the serving path on a scale-1 integer corpus (n=2000,
-                 d=128): index built on the card and on the CPU, then
+                 d=128): index built (fused) on the card and on the CPU,
+                 then
                  ``retrieval_attention_batched`` with hash visit state and
                  W=4, fp32 and sq8: identical graphs, pools and counters,
                  attention to 1e-5.
 7. serve      -- retrieval attention over one head of a 128K-token context
                  at head width 128 (Llama-3-8B's, served through
-                 RetrievalAttention): a Vamana index (L=128, M=32) with its
-                 int8 view, 1000 decode queries at ef in {32, 64, 128},
-                 fp32 and sq8, against the exact top-32 under the index's
+                 RetrievalAttention): a Vamana index (L=128, M=32, fused
+                 build) with its int8 view, 1000 decode queries at ef in
+                 {32, 64, 128}, fp32 and sq8, against the exact top-32 under the index's
                  metric and exact attention; once under the index's
                  default ip metric and once under cosine.  Asserted: sq8
                  recall >= fp32 - 0.02 at every ef, finite outputs, both
@@ -91,6 +108,11 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
 Launch counters are zeroed just before each path (main, the serving
 ground truth ``serve_gt``, serve, and the LM phases) and read just after;
 every kernel of that path must have launched.
+
+``--profile N`` runs only device, build and a profile of one fused
+grouped build of N points (after a first build that captures its step):
+the device's idle share from CUDA events around every graph replay, and
+torch.profiler's view.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero without a CUDA
@@ -286,10 +308,10 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
-    sources = ["distance", "flash_attention"]
+    sources = list(_build.SOURCES)
     t0 = time.perf_counter()
-    _, flash = _build.load_all(sources)
-    smem = flash.flash_attention_bf16_smem
+    libs = dict(zip(sources, _build.load_all(sources)))
+    smem = libs["flash_attention"].flash_attention_bf16_smem
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     distance = _build.ptxas_summary(_build.PTXAS.get("distance", ""))
     emit("build", sources=[f"{n}.cu" for n in sources],
@@ -299,7 +321,9 @@ def phase_build() -> None:
          distance_ptxas=distance,
          flash_ptxas=_build.ptxas_summary(
              _build.PTXAS.get("flash_attention", ""), "flash_attention"),
-         flash_bf16_smem_bytes={dp: smem(dp) for dp in (64, 128, 224, 256)})
+         flash_bf16_smem_bytes={dp: smem(dp) for dp in (64, 128, 224, 256)},
+         prune_ptxas=_build.ptxas_summary(_build.PTXAS.get("prune", ""),
+                                          "prune_recurrence_kernel"))
 
 
 def pairwise_bodies(rows: list[dict]) -> list[dict]:
@@ -881,6 +905,96 @@ def _flash_f32_timed(fa, gen, b: int, s: int, h: int, dh: int) -> dict:
                         "is_causal=True) in fp32")
 
 
+def _prune_inputs(gen, b: int, L: int, limit: int, geometric: bool):
+    """valid, may_dominate and m_limit for the prune recurrence.
+
+    ``geometric``: the forward prune's own inputs at alpha 1 -- for each
+    row, L gaussian candidates (d=128) sorted by distance to a query,
+    ``may_dominate[j, w] = d(j, w) < d(u, j)`` -- else a random mask of
+    density 0.1.  ``limit`` is the degree limit M."""
+    import torch
+    from repro_torch.core import prune
+    valid = torch.rand((b, L), generator=gen, device="cuda") < 0.9
+    if geometric:
+        pts = torch.randn((b, L + 1, 128), generator=gen, device="cuda")
+        du = ((pts[:, 1:] - pts[:, :1]) ** 2).sum(-1)
+        du, order = torch.sort(du, dim=-1, stable=True)
+        cand = torch.take_along_dim(pts[:, 1:], order[..., None], dim=1)
+        flat = cand.reshape(b * L, 128)
+        ids = torch.arange(b * L, device="cuda").reshape(b, L)
+        md = prune.pairwise_candidate_dist(flat, ids) < du[:, :, None]
+    else:
+        md = torch.rand((b, L, L), generator=gen, device="cuda") < 0.1
+    lim = torch.full((b,), limit, dtype=torch.int32, device="cuda")
+    return valid, md.contiguous(), lim
+
+
+def _prune_bytes(valid, md, processed, accepted) -> float:
+    """Bytes the recurrence needs on these inputs: valid, m_limit and the
+    two (b, L) outputs once, and of may_dominate the entries a sequential
+    scan consults -- for each processed j, [j][w] over the accepted w < j
+    in order, up to the first that dominates it."""
+    import torch
+    b, L = valid.shape
+    before = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=valid.device), -1)
+    members = accepted[:, None, :] & before                    # (b, j, w)
+    seen = torch.cumsum(members.to(torch.int32), dim=-1)
+    hits = members & md
+    first = hits.to(torch.uint8).argmax(-1, keepdim=True)
+    checks = torch.where(hits.any(-1), seen.gather(-1, first)[..., 0],
+                         seen[..., -1])
+    return float(checks[processed].sum()) + b * L + 4 * b + 2 * b * L
+
+
+def _prune_row(prk, gen) -> dict:
+    """The prune recurrence kernel against its plain loop, bit for bit, at
+    the forward prune's (256, 128) and the reverse re-prune's (8192, 48)
+    with M = 32, on geometric and random inputs, with m_limit reached and
+    never reached; timed at both path shapes on geometric inputs."""
+    import torch
+    checked = []
+    for (b, L) in ((256, 128), (8192, 48), (1, 257), (300, 16)):
+        for geometric in (True, False):
+            for limit in (32, L + 1):
+                valid, md, lim = _prune_inputs(gen, b, L, limit, geometric)
+                got = prk.prune_recurrence(valid, md, lim)
+                want = prk.prune_recurrence_plain(valid, md, lim)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"prune kernel != plain loop at "
+                                         f"{(b, L)} limit {limit}")
+                checked.append([b, L, limit, int(geometric)])
+
+    def timed(b, L):
+        valid, md, lim = _prune_inputs(gen, b, L, 32, True)
+        def kernel_fn():
+            return prk.prune_recurrence(valid, md, lim)
+        row = timed_row(kernel_fn,
+                        lambda: prk.prune_recurrence_plain(valid, md, lim),
+                        reps=20)
+        row["device_ms"], row["device_ms_spread"] = graph_ms(kernel_fn)
+        proc, acc = prk.prune_recurrence_plain(valid, md, lim)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            _prune_bytes(valid, md, proc, acc), 0.0)
+        # the whole mask read once
+        row["bound_full_ms"], _ = bound_ms(b * L * L + b * L + 4 * b
+                                           + 2 * b * L, 0.0)
+        row["accepted_mean"] = float(acc.sum(-1).float().mean())
+        row["shape"] = [b, L]
+        return row
+
+    fwd, rev = timed(256, 128), timed(8192, 48)
+    return dict(name="prune_recurrence", route="cuda",
+                source="src/repro_torch/kernels/csrc/prune.cu",
+                replaces="none: port-only; the reference's XLA fori_loop at "
+                         "src/repro/core/prune.py:104",
+                launches=0, max_abs_err=0.0, **fwd, reverse=rev,
+                shapes_checked=checked,
+                library="none: no single PyTorch call computes the "
+                        "recurrence")
+
+
 def sfu_ops_per_s() -> float:
     """The card's special-function (MUFU) rate: 16 a clock on each SM at
     the card's maximum SM clock (nvidia-smi's clocks.max.sm)."""
@@ -900,17 +1014,19 @@ def phase_kernels(n_corpus: int) -> list[dict]:
     from repro_torch.kernels import gather_distance as gd
     from repro_torch.kernels import l2_distance as l2
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import prune as prk
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = [_pairwise_row(l2, ops, mlib, gen, n_corpus),
            _gather_row(gd, gen, n_corpus),
            _gather_sq8_row(gd, ops, ref, gen),
            _pairwise_sq8_row(l2, ops, ref, mlib, gen),
-           _flash_row(fa, gen)]
+           _flash_row(fa, gen),
+           _prune_row(prk, gen)]
     # the graph harness's own floor: a 1-element fill_ per captured call,
     # beside the gathers' device times
     one = torch.zeros(1, device="cuda")
     floor, floor_spread = graph_ms(lambda: one.fill_(1.0))
-    for row in out[1:3]:
+    for row in out[1:3] + out[5:]:
         row["graph_floor_ms"], row["graph_floor_ms_spread"] = (floor,
                                                                floor_spread)
     torch.cuda.empty_cache()
@@ -920,28 +1036,36 @@ def phase_kernels(n_corpus: int) -> list[dict]:
 
 
 def phase_exact() -> None:
+    """n=2000 integer data: the fused build on the card == the per_batch
+    build on the card == the fused build on the CPU (ids, edge lengths,
+    counters, entry); multi == single on the card."""
     import torch
     from repro_torch.core import graph, vamana
     gen = torch.Generator().manual_seed(1)
     data = torch.clamp(torch.round(torch.randn((2000, 128), generator=gen)
                                    * 2), -4, 4)
     ps = [vamana.VamanaParams(**c) for c in CONFIGS]
-    t0 = time.perf_counter()
-    gpu = vamana.build_multi_vamana(data, ps, seed=0, batch_size=256,
-                                    device="cuda")
-    t_gpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cpu = vamana.build_multi_vamana(data, ps, seed=0, batch_size=256,
-                                    device="cpu")
-    t_cpu = time.perf_counter() - t0
-    if not torch.equal(gpu.g.ids.cpu(), cpu.g.ids):
-        frac = float((gpu.g.ids.cpu() == cpu.g.ids).float().mean())
-        raise AssertionError(f"card graph != CPU graph ({frac} equal)")
-    if not torch.equal(gpu.g.dist.cpu(), cpu.g.dist):
-        raise AssertionError("card edge lengths != CPU edge lengths")
-    if gpu.counters != cpu.counters or gpu.entry != cpu.entry:
-        raise AssertionError(f"counters differ: {gpu.counters} vs "
-                             f"{cpu.counters}")
+    builds, secs = {}, {}
+    for name, dev, impl in (("card_fused", "cuda", "fused"),
+                            ("card_per_batch", "cuda", "per_batch"),
+                            ("cpu_fused", "cpu", "fused")):
+        t0 = time.perf_counter()
+        builds[name] = vamana.build_multi_vamana(
+            data, ps, seed=0, batch_size=256, build_impl=impl, device=dev)
+        secs[name] = time.perf_counter() - t0
+    gpu = builds["card_fused"]
+    for name in ("card_per_batch", "cpu_fused"):
+        other = builds[name]
+        if not torch.equal(gpu.g.ids.cpu(), other.g.ids.cpu()):
+            frac = float((gpu.g.ids.cpu() == other.g.ids.cpu())
+                         .float().mean())
+            raise AssertionError(f"card fused graph != {name} graph "
+                                 f"({frac} equal)")
+        if not torch.equal(gpu.g.dist.cpu(), other.g.dist.cpu()):
+            raise AssertionError(f"card fused edge lengths != {name}'s")
+        if gpu.counters != other.counters or gpu.entry != other.entry:
+            raise AssertionError(f"counters differ: {gpu.counters} vs "
+                                 f"{name} {other.counters}")
     # Sharing never changes a graph, given the same initial graph: the
     # random initial KNNG is drawn at the group's degree bucket M_max (its
     # rows are not prefixes across widths), so the single builds compared
@@ -951,13 +1075,14 @@ def phase_exact() -> None:
     for i in same_init:
         p = ps[i]
         single = vamana.build_vamana(data, p, seed=0, batch_size=256,
-                                     device="cuda")
+                                     build_impl="fused", device="cuda")
         if not torch.equal(gpu.g.ids[i][:, :p.M], single.g.ids[0][:, :p.M]):
             raise AssertionError(f"multi != single for config {i}")
     emit("exact", n=2000, d=128, identical_ids=True, identical_dist=True,
-         identical_counters=True, multi_equals_single_configs=same_init,
-         counters=gpu.counters.as_dict(), card_build_s=t_gpu,
-         cpu_build_s=t_cpu)
+         identical_counters=True,
+         compared=["card_fused", "card_per_batch", "cpu_fused"],
+         multi_equals_single_configs=same_init,
+         counters=gpu.counters.as_dict(), build_s=secs)
 
 
 def zero_counts(counters: dict) -> None:
@@ -991,6 +1116,83 @@ def knn_split(data, queries) -> None:
          sort_share=sort_ms / whole_ms)
 
 
+class BuildWatch:
+    """Per-build records of the estimations' builds (``params.build_many``
+    wrapped): impl, m, wall seconds, host syncs, replayed steps and
+    capture seconds; the hops of every per_batch build search of the
+    grouped shape (``search.beam_search`` wrapped); and the stage
+    functions' Python-level calls made after a fused build's first
+    replay, which must be none."""
+
+    STAGES = (("search", "search_begin"), ("search", "hop_chunk"),
+              ("search", "search_end"), ("search", "beam_search_chunked"),
+              ("prune", "multi_prune"), ("prune", "rng_prune"),
+              ("commit", "commit_group"), ("commit", "add_reverse_edges"),
+              ("build", "insert_tail"))
+
+    def __init__(self, m_grouped: int):
+        from repro_torch.core import build, commit, prune, search
+        from repro_torch.core.tuner import params
+        self.mods = dict(search=search, prune=prune, commit=commit,
+                         build=build, params=params)
+        self.m_grouped = m_grouped
+        self.builds, self.hops, self.late_calls = [], [], {}
+        self._saved = []
+        self._start = None
+
+    def __enter__(self):
+        import torch
+        search, build = self.mods["search"], self.mods["build"]
+        params = self.mods["params"]
+        build_many, beam_search = params.build_many, search.beam_search
+
+        def watched_build(pg, data, bps, **kw):
+            s0, r0 = search.HOST_SYNCS, build.REPLAYS
+            c0 = build.CAPTURE_SECONDS
+            self._start = r0
+            t0 = time.perf_counter()
+            try:
+                res = build_many(pg, data, bps, **kw)
+                torch.cuda.synchronize()
+            finally:
+                self._start = None
+            self.builds.append(dict(
+                impl=kw["build_impl"], m=len(bps),
+                seconds=time.perf_counter() - t0,
+                host_syncs=search.HOST_SYNCS - s0,
+                replays=build.REPLAYS - r0,
+                capture_s=build.CAPTURE_SECONDS - c0))
+            return res
+
+        def watched_search(graph_ids, *a, **kw):
+            res = beam_search(graph_ids, *a, **kw)
+            if self._start is not None and \
+                    graph_ids.shape[0] == self.m_grouped:
+                self.hops.append(int(res.hops))
+            return res
+
+        self._patch(params, "build_many", watched_build)
+        self._patch(search, "beam_search", watched_search)
+        for mod, name in self.STAGES:
+            fn = getattr(self.mods[mod], name)
+
+            def staged(*a, _fn=fn, _name=name, **kw):
+                if self._start is not None and build.REPLAYS > self._start:
+                    self.late_calls[_name] = self.late_calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+            self._patch(self.mods[mod], name, staged)
+        return self
+
+    def _patch(self, mod, name, fn):
+        self._saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+
 def phase_main(n: int, counters: dict) -> dict:
     import torch
     from repro_torch.core import eval as evallib
@@ -1002,6 +1204,8 @@ def phase_main(n: int, counters: dict) -> dict:
                                            n_clusters=N_CLUSTERS,
                                            spread=SPREAD)
     t_data = time.perf_counter() - t0
+    kw = dict(group_size=4, build_batch_size=256, ef_grid=EF_GRID)
+    watch = BuildWatch(m_grouped=len(CONFIGS))
 
     zero_counts(counters)
     search.HOST_SYNCS = 0
@@ -1009,16 +1213,18 @@ def phase_main(n: int, counters: dict) -> dict:
     gt = evallib.ground_truth(data, queries, 10)
     torch.cuda.synchronize()
     t_gt = time.perf_counter() - t0
-    grouped = estimator.estimate("vamana", data, queries, gt, CONFIGS,
-                                 group_size=4, build_batch_size=256,
-                                 ef_grid=EF_GRID)
-    syncs_grouped = search.HOST_SYNCS
-    base = estimator.estimate("vamana", data, queries, gt, CONFIGS,
-                              group_size=1, build_batch_size=256,
-                              ef_grid=EF_GRID)
-    torch.cuda.synchronize()
-    launches = read_counts(counters)
-    syncs = search.HOST_SYNCS
+    with watch:
+        grouped = estimator.estimate("vamana", data, queries, gt, CONFIGS,
+                                     build_impl="fused", **kw)
+        base = estimator.estimate("vamana", data, queries, gt, CONFIGS,
+                                  build_impl="fused",
+                                  **dict(kw, group_size=1))
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        # beside the counted path: the per_batch grouped build on the same
+        # data, for identity and its hops a batch
+        per_batch = estimator.estimate("vamana", data, queries, gt, CONFIGS,
+                                       build_impl="per_batch", **kw)
 
     knn_split(data, queries)
     # ground truth held against the plain version on a query subset
@@ -1034,16 +1240,41 @@ def phase_main(n: int, counters: dict) -> dict:
                     per_config=[dict(cfg=e.cfg, recall=e.recall, qps=e.qps,
                                      points=[vars(p) for p in e.points])
                                 for e in rec.estimates])
-    g, bsum = summary(grouped), summary(base)
+    g, bsum, psum = summary(grouped), summary(base), summary(per_batch)
     c = grouped.counters
     # the best config's recall@10 over its ef sweep
     best = max(p.recall for e in grouped.estimates for p in e.points)
+    k_chunk = search.HOP_CHUNK
+    hops = watch.hops
+    n_batches = -(-n // 256)
+    fused_g, per_g = watch.builds[0], watch.builds[-1]
+    syncs_expected = sum(max(1, math.ceil(h / k_chunk)) for h in hops)
+    hist = {}
+    for h in hops:
+        lo = h // k_chunk * k_chunk
+        hist[f"{lo}-{lo + k_chunk - 1}"] = hist.get(
+            f"{lo}-{lo + k_chunk - 1}", 0) + 1
+    hop_stats = dict(
+        batches=len(hops), min=min(hops), max=max(hops),
+        mean=sum(hops) / len(hops), median=sorted(hops)[len(hops) // 2],
+        histogram=hist, hop_chunk=k_chunk,
+        surplus_share=sum(max(1, math.ceil(h / k_chunk)) * k_chunk + k_chunk
+                          - h for h in hops) / sum(hops))
     emit("main", n=n, d=128, nq=NQ, k=10, data_s=t_data,
          ground_truth_s=t_gt, grouped=g, baseline=bsum,
+         per_batch_grouped=psum, builds=watch.builds,
+         hops_per_batch=hop_stats,
+         host_syncs_grouped=dict(fused=fused_g["host_syncs"],
+                                 per_batch=per_g["host_syncs"],
+                                 fused_expected=syncs_expected,
+                                 fused_bound=sum(math.ceil(h / k_chunk) + 1
+                                                 for h in hops)),
+         stage_calls_after_capture=watch.late_calls,
          eso_epo_saving=1.0 - c.total / c.total_base,
          build_speedup=base.build_seconds / grouped.build_seconds,
-         launches=launches, host_syncs_grouped=syncs_grouped,
-         host_syncs_total=syncs, gt_recall_vs_plain=gt_recall,
+         fused_speedup_grouped=per_batch.build_seconds
+         / grouped.build_seconds,
+         launches=launches, gt_recall_vs_plain=gt_recall,
          best_recall=best,
          reduced=f"n={n} of the paper's 1M-vector corpora (time limit)")
     if not gt_ok or gt_recall < 0.99:
@@ -1055,13 +1286,30 @@ def phase_main(n: int, counters: dict) -> dict:
     if best < 0.9:
         raise AssertionError(f"best recall@10 {best} < 0.9")
     # sharing never changes a graph: every config's sweep is the same in
-    # the grouped and the baseline estimation (one degree bucket)
-    for eg, eb in zip(grouped.estimates, base.estimates):
-        if [p.recall for p in eg.points] != [p.recall for p in eb.points]:
+    # the grouped and the baseline estimation (one degree bucket), and the
+    # fused build's graphs are the per_batch build's
+    for eg, eb, ep in zip(grouped.estimates, base.estimates,
+                          per_batch.estimates):
+        recalls = [p.recall for p in eg.points]
+        if recalls != [p.recall for p in eb.points]:
             raise AssertionError(f"grouped != baseline recall for {eg.cfg}")
+        if recalls != [p.recall for p in ep.points]:
+            raise AssertionError(f"fused != per_batch recall for {eg.cfg}")
+    if grouped.counters != per_batch.counters:
+        raise AssertionError(f"fused counters {grouped.counters} != "
+                             f"per_batch {per_batch.counters}")
     if not c.total < c.total_base:
         raise AssertionError(f"no ESO/EPO saving: {c.as_dict()}")
-    for name in ("gather_distance", "pairwise_distance"):
+    if watch.late_calls:
+        raise AssertionError(f"stage functions called after capture: "
+                             f"{watch.late_calls}")
+    if len(hops) != n_batches or fused_g["replays"] != n_batches or \
+            fused_g["host_syncs"] != syncs_expected:
+        raise AssertionError(
+            f"fused grouped build: {fused_g['replays']} replays and "
+            f"{fused_g['host_syncs']} host syncs, expected {n_batches} and "
+            f"{syncs_expected} (per_batch hops {len(hops)} batches)")
+    for name in ("gather_distance", "pairwise_distance", "prune_recurrence"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
@@ -1089,7 +1337,7 @@ def phase_serve_exact() -> None:
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         idx[dev] = retrieval.build_index(keys, values, p, quantize="sq8",
-                                         device=dev)
+                                         build_impl="fused", device=dev)
         build_s[dev] = time.perf_counter() - t0
     gpu, cpu = idx["cuda"], idx["cpu"]
     if not torch.equal(gpu.graph_ids.cpu(), cpu.graph_ids) or \
@@ -1120,6 +1368,7 @@ def phase_serve_exact() -> None:
                                  f"attention err {att_err}")
     emit("serve_exact", n=2000, d=128, nq=200, ef=64, top_k=TOP_K,
          visited_impl="hash", expand_width=4, params=SERVE_PARAMS,
+         build_impl="fused",
          identical_graph=True, card_build_s=build_s["cuda"],
          cpu_build_s=build_s["cpu"], modes=rows)
 
@@ -1164,18 +1413,22 @@ def phase_serve(counters: dict, data: dict, metric: str) -> dict:
     attention cosine reaches 0.9 there."""
     import torch
     from repro_torch.core import eval as evallib
-    from repro_torch.core import search, vamana
+    from repro_torch.core import build, search, vamana
     from repro_torch.serve import retrieval
     queries = data["queries"]
     zero_counts(counters)
     search.HOST_SYNCS = 0
+    replays, capture_s = build.REPLAYS, build.CAPTURE_SECONDS
     t0 = time.perf_counter()
     idx = retrieval.build_index(data["keys"], data["values"],
                                 vamana.VamanaParams(**SERVE_PARAMS),
-                                metric=metric, quantize="sq8")
+                                metric=metric, quantize="sq8",
+                                build_impl="fused")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     syncs_build = search.HOST_SYNCS
+    build_steps = dict(replays=build.REPLAYS - replays,
+                       capture_s=build.CAPTURE_SECONDS - capture_s)
     retrieval.retrieval_attention_batched(idx, queries[:BLOCK], top_k=TOP_K,
                                           ef=SERVE_EFS[0])       # warm-up
     sweep = []
@@ -1216,6 +1469,7 @@ def phase_serve(counters: dict, data: dict, metric: str) -> dict:
     emit("serve", metric=metric, n_ctx=N_CTX, dh=128, nq=NQ, top_k=TOP_K,
          block_size=BLOCK, visited_impl="hash", expand_width=4,
          params=SERVE_PARAMS, data_s=data["seconds"], build_s=build_s,
+         build_impl="fused", build_steps=build_steps,
          host_syncs_build=syncs_build, sweep=sweep, launches=launches,
          corpus_bytes=corpus_bytes, attention_gate=gate,
          recall_floor=(COSINE_RECALL_FLOOR if metric == "cosine" else None),
@@ -1269,30 +1523,66 @@ def device_time(prof, top: int = 8) -> tuple[float, dict, int]:
 
 
 def phase_profile(n: int) -> None:
-    """torch.profiler over one grouped build of ``n`` points: the device's
-    busy share of the wall time and the ops that take the host's time."""
+    """One fused grouped build of ``n`` points after a first one has
+    captured its step: the device's busy share of the wall time, read two
+    ways -- CUDA events around every graph replay (no profiler running),
+    and torch.profiler's device records -- and the ops that take the
+    host's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import search, vamana
+    from repro_torch.core import build, search, vamana
     from repro_torch.core.tuner import estimator
     data, _ = estimator.make_dataset(n, 128, 1, seed=0,
                                      n_clusters=N_CLUSTERS, spread=SPREAD)
     ps = [vamana.VamanaParams(**c) for c in CONFIGS]
-    vamana.build_multi_vamana(data[:256], ps, batch_size=256)     # warm-up
-    syncs = search.HOST_SYNCS
+    kw = dict(batch_size=256, build_impl="fused")
+    t0 = time.perf_counter()
+    vamana.build_multi_vamana(data, ps, **kw)          # captures the step
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    # device time of every replay: events around each, the host's waits
+    # (the chunk flag reads) fall between replays, not inside them
+    spans, replay = [], torch.cuda.CUDAGraph.replay
+
+    def timed_replay(graph):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(graph)
+        b.record()
+        spans.append((a, b))
+    torch.cuda.CUDAGraph.replay = timed_replay
+    try:
+        syncs, replays = search.HOST_SYNCS, build.REPLAYS
+        t0 = time.perf_counter()
+        vamana.build_multi_vamana(data, ps, **kw)
+        torch.cuda.synchronize()
+        wall_events = time.perf_counter() - t0
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    graph_busy = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    steps = build.REPLAYS - replays
+    syncs = search.HOST_SYNCS - syncs
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        vamana.build_multi_vamana(data, ps, batch_size=256)
+        vamana.build_multi_vamana(data, ps, **kw)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    busy, _, launches = device_time(prof)
+    busy, top, launches = device_time(prof)
     print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                     row_limit=20), flush=True)
-    emit("profile", n=n, wall_s=wall, device_busy_s=busy,
-         device_idle_share=1.0 - busy / wall,
-         cuda_launches=launches, hops=search.HOST_SYNCS - syncs,
-         note="wall time includes the profiler's own overhead")
+    emit("profile", n=n, build_impl="fused", first_build_s=first,
+         wall_s=wall_events, graph_busy_s=graph_busy,
+         device_idle_share=1.0 - graph_busy / wall_events,
+         replays=len(spans), steps=steps, host_syncs=syncs,
+         profiled_wall_s=wall, profiled_device_busy_s=busy,
+         profiled_idle_share=1.0 - busy / wall if busy else None,
+         top_device_ms=top, cuda_launches=launches,
+         note="device_idle_share from CUDA events around each graph "
+              "replay, without the profiler; the profiled figures carry "
+              "the profiler's own overhead, and graph kernels appear in "
+              "them only if CUPTI traces graph launches")
 
 
 def _assert_close(name: str, got, want, tol: float) -> float:
@@ -1549,14 +1839,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import resolve_device
+    from repro_torch.core import build
     from repro_torch.kernels import (flash_attention, gather_distance,
-                                     l2_distance)
+                                     l2_distance, prune)
     resolve_device("cuda")           # pins TF32 off for the whole run
     counters = {"gather_distance": (gather_distance, "LAUNCHES"),
                 "pairwise_distance": (l2_distance, "LAUNCHES"),
                 "gather_distance_sq8": (gather_distance, "LAUNCHES_SQ8"),
                 "pairwise_distance_sq8": (l2_distance, "LAUNCHES_SQ8"),
-                "flash_attention": (flash_attention, "LAUNCHES")}
+                "flash_attention": (flash_attention, "LAUNCHES"),
+                "prune_recurrence": (prune, "LAUNCHES")}
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -1581,6 +1873,7 @@ def main() -> int:
     by_path["serve_ip"] = phase_serve(counters, data, "ip")
     by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
     del data
+    build.release()                  # the captured build steps
     torch.cuda.empty_cache()
     by_path["lm_exact"] = phase_lm_exact(counters)
     by_path["lm_width"] = phase_lm_width(counters)

@@ -54,12 +54,17 @@ TAPE_FIELDS = ("search_base", "search", "prune_base", "prune")
 
 
 def step_row(n_fresh, n_computed, n_prune_base, n_prune) -> torch.Tensor:
-    """One CounterTape row (int64[4]) from a batch step's device scalars."""
+    """One CounterTape row (int64[4]) from a batch step's device scalars.
+
+    A Python int becomes a fill on the scalars' device, never a
+    host-to-device copy (which a captured CUDA graph refuses)."""
     vals = (n_fresh, n_computed, n_prune_base, n_prune)
     dev = next((v.device for v in vals if isinstance(v, torch.Tensor)),
                torch.device("cpu"))
-    return torch.stack([torch.as_tensor(v, device=dev).to(torch.int64)
-                        .reshape(()) for v in vals])
+    return torch.stack([
+        v.to(dev, torch.int64).reshape(()) if isinstance(v, torch.Tensor)
+        else torch.full((), v, dtype=torch.int64, device=dev)
+        for v in vals])
 
 
 class CounterTape:
@@ -68,15 +73,16 @@ class CounterTape:
     def __init__(self):
         self._rows: list[torch.Tensor] = []
 
-    def log(self, n_fresh, n_computed, n_prune_base, n_prune) -> None:
-        self._rows.append(step_row(n_fresh, n_computed, n_prune_base,
-                                   n_prune))
+    def log_many(self, rows: torch.Tensor) -> None:
+        """Log a step's ``step_row`` or a [k, 4] block of them (a fused
+        pass's whole per-batch log)."""
+        self._rows.append(rows.reshape(-1, 4))
 
     def drain_into(self, ctr: BuildCounters) -> None:
         """ONE host sync: fetch every logged row, add totals into ``ctr``."""
         if not self._rows:
             return
-        totals = torch.stack(self._rows).cpu().numpy().astype(np.int64)
+        totals = torch.cat(self._rows).cpu().numpy().astype(np.int64)
         totals = totals.sum(axis=0)
         self._rows = []
         for name, v in zip(TAPE_FIELDS, totals):

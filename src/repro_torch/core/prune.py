@@ -3,7 +3,10 @@
 Port of ``repro/core/prune.py``.  The dominance recurrence is order
 dependent (candidates ascending by distance; accepted members prune later
 ones), so it is a loop over the L candidate positions carrying an accepted
-mask -- a Python loop here, where the reference used ``lax.fori_loop``.
+mask, where the reference used ``lax.fori_loop``.  Here it is one call,
+``ops.prune_recurrence``: a hand-written CUDA kernel on the card (one warp
+per row), the plain loop on the CPU.  Everything around it -- the
+dominance mask, the counters, the stable compaction -- is plain PyTorch.
 
 EPO: when graph i's list is pruned after graph i-1's, a pair (v, w) with
 both endpoints in graph i-1's accepted set was already verified
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.graph import INVALID
+from repro_torch.kernels import ops
 
 
 class PruneResult(NamedTuple):
@@ -61,25 +65,21 @@ def rng_prune(cand_ids: torch.Tensor,    # int32[b, L] ascending by distance
     """Alg. 2 when skip_member is None, Alg. 4 (mPrune) otherwise."""
     b, L = cand_ids.shape
     dev = cand_ids.device
-    m_limit = torch.as_tensor(m_limit, dtype=torch.int32,
-                              device=dev).expand(b)
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    # device tensors pass through without a copy; a Python number becomes
+    # a fill on the device (never a host-to-device copy, which a captured
+    # CUDA graph refuses)
+    m_limit = (m_limit.to(dev, torch.int32) if torch.is_tensor(m_limit)
+               else torch.full((), m_limit, dtype=torch.int32, device=dev)
+               ).expand(b)
+    alpha = (alpha.to(dev, torch.float32) if torch.is_tensor(alpha)
+             else torch.full((), alpha, dtype=torch.float32, device=dev))
     # Everything that does not depend on the recurrence is computed once:
     # w may dominate j (alpha * d(j, w) < d(u, j)) unless EPO skips the pair.
     may_dominate = alpha * pair_dist < cand_dist[:, :, None]    # (b, L, L)
     if skip_member is not None:
         skip = skip_member[:, :, None] & skip_member[:, None, :]
         may_dominate &= ~skip
-    accepted = torch.zeros((b, L), dtype=torch.bool, device=dev)
-    processed = torch.zeros((b, L), dtype=torch.bool, device=dev)
-    count = torch.zeros((b,), dtype=torch.int32, device=dev)
-    for j in range(L):
-        proc_j = valid[:, j] & (count < m_limit)                 # (b,)
-        dominated = (accepted & may_dominate[:, j]).any(-1)
-        acc_j = proc_j & ~dominated
-        processed[:, j] = proc_j
-        accepted[:, j] = acc_j
-        count += acc_j
+    processed, accepted = ops.prune_recurrence(valid, may_dominate, m_limit)
     # A processed j is checked against every member accepted before it
     # (acceptance of w < j is final by then): the counters follow.
     before = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev), -1)

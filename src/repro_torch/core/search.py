@@ -7,9 +7,24 @@ unexpanded entries per (query, graph), gathers their out-neighbors,
 computes distances through the gather-distance kernel's ids form and
 merges with a sorted-pool + top-k candidate merge.
 
-The reference runs the hops in a ``lax.while_loop``; here the loop is a
-Python loop whose condition costs one host sync per hop (``HOST_SYNCS``
-counts them), the first cost a later port slice removes.
+The reference runs the hops in a ``lax.while_loop``.  Here there are two
+hop loops over one state (``BeamState``, made by ``search_begin`` and read
+out by ``search_end``):
+
+  ``beam_search``          a Python loop whose condition costs one host
+                           sync per hop (the per_batch build, ``knn_search``);
+  ``hop_chunk`` + ``drive_chunks``
+                           HOP_CHUNK hops a chunk, each guarded on the device
+                           by ``unexp & (hops < max_hops)``, the hop count a
+                           device counter, and the host reading a "still
+                           unexpanded" flag once a chunk, chunk c+1 enqueued
+                           before chunk c's flag is read (the fused build,
+                           whose chunk is one captured CUDA graph).  A hop
+                           with no unexpanded slot is an exact no-op, so the
+                           surplus hops of the last chunks change nothing and
+                           the result is the reference's ``while_loop``'s.
+
+``HOST_SYNCS`` counts the host's reads of either loop's condition.
 
 ESO (``share_cache=True``): a per-query V_delta membership bitmap shared by
 the m graphs, so ``n_computed`` counts the union of visited (query,
@@ -44,8 +59,18 @@ from repro_torch.kernels import ops
 
 VISITED_IMPLS = ("dense", "hash")
 
-# Host round trips made by the hop loop's condition (one per hop check).
+# Host round trips made by the hop loops' conditions (one per hop check of
+# beam_search, one per chunk of drive_chunks).
 HOST_SYNCS = 0
+# Hops a chunk of the chunked loop.  A batch of the grouped build at n=50k
+# and L=128 takes 136-211 hops, median 148 (chip_smoke.py's hop
+# histogram, PERF.md), and runs about 1.5 chunks of surplus no-op hops
+# (half a chunk past convergence, one enqueued ahead): 7.2% of its hops
+# at 8, 3.5% at 4.  On an H100 that build took the same time within 1% at
+# 2, 4, 8 and 16 (tools/compare_fused_build.py); 4 keeps the surplus small
+# where batches need fewer hops, and the host's work a chunk (a replay, a
+# flag copy, an event) far below a chunk's device time.
+HOP_CHUNK = 4
 
 
 class SearchResult(NamedTuple):
@@ -53,7 +78,7 @@ class SearchResult(NamedTuple):
     pool_dist: torch.Tensor   # float32[b, m, ef_max]
     n_fresh: torch.Tensor     # int64[] per-graph-alone distance count
     n_computed: torch.Tensor  # int64[] actually computed (ESO)
-    hops: int
+    hops: "int | torch.Tensor"   # int64[] on the device in the chunked loop
     cache_d: torch.Tensor     # float32[b, 1] dummy (API parity)
     cache_has: torch.Tensor   # bool[b, n] dense | int32[b, S] hash table
                               # (or bool[b, 1] without a shared cache)
@@ -143,11 +168,13 @@ def _corpus_len(data) -> int:
     return data.shape[0]
 
 
-def _gathered_distance(data, flat_ids, valid, queries, metric, cached=None):
+def _gathered_distance(data, flat_ids, valid, queries, metric, cached=None,
+                       prescaled=None):
     """(b, k) distances from each query to row ``flat_ids`` of the corpus.
 
     Calls a gather kernel's ids form (fp32, or int8 codes for a
-    ``QuantizedData`` corpus), so the (b, k, d) slab is never
+    ``QuantizedData`` corpus, with the queries' ``prescaled`` operands
+    computed once a search), so the (b, k, d) slab is never
     materialized; lanes with ``valid`` False are discarded by every caller
     and pass ``cached`` (+inf) through without reading their rows."""
     if cached is None:
@@ -156,7 +183,7 @@ def _gathered_distance(data, flat_ids, valid, queries, metric, cached=None):
     if isinstance(data, metric_lib.QuantizedData):
         return ops.gather_distance_q_ids(queries, data, flat_ids,
                                          cached=cached, mask=valid,
-                                         metric=metric)
+                                         metric=metric, prescaled=prescaled)
     return ops.gather_distance_ids(queries, data, flat_ids, cached=cached,
                                    mask=valid, metric=metric)
 
@@ -188,6 +215,9 @@ class _Hop(NamedTuple):
     tri: torch.Tensor        # bool[kx, kx] strictly-lower triangle
     lane_sentinel: torch.Tensor   # int32[m*kx] n + lane (distinct misses)
     inf: torch.Tensor        # f32[b, m*kx] +inf, the gather's pass-through
+    true: torch.Tensor       # bool[] True on the device: the value of the
+                             # visit writes (a Python True would be copied
+                             # from the host, which a CUDA graph refuses)
 
 
 def _hop_consts(b, m, n, ef_max, kx, dev) -> _Hop:
@@ -199,12 +229,14 @@ def _hop_consts(b, m, n, ef_max, kx, dev) -> _Hop:
         tri=torch.tril(torch.ones((kx, kx), dtype=torch.bool, device=dev),
                        -1),
         lane_sentinel=(n + torch.arange(m * kx, device=dev)).to(torch.int32),
-        inf=torch.full((b, m * kx), float("inf"), device=dev))
+        inf=torch.full((b, m * kx), float("inf"), device=dev),
+        true=torch.ones((), dtype=torch.bool, device=dev))
 
 
 def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
                        pool_ids, pool_dist, expanded, visited, cache_has,
-                       share_cache, metric, width, hop: _Hop):
+                       share_cache, metric, width, hop: _Hop,
+                       prescaled=None):
     """One hop of ALL m graphs, vectorized over (b, m, W).
 
     ``unexp`` marks the unexpanded pool slots within each graph's ef (the
@@ -213,6 +245,13 @@ def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
     ``cache_has`` bool[b, n+1]) is updated in place, column n being the
     trash slot for dropped writes; hash state (int32 key tables) is
     replaced.
+
+    With ``unexp`` all False the hop is an exact no-op: every lane is
+    inactive, so the expanded mark goes to the trash slot ef_max, the
+    lanes read node 0's row but propose nothing, the gather passes +inf
+    through, the dense writes land in the trash column n, the hash
+    tables take no insert, both counts are 0, and the merge keeps the
+    pool (pool entries win distance ties, +inf ones included).
     Returns (pool_ids, pool_dist, expanded, visited, cache_has, n_fresh,
     n_computed)."""
     b, m, ef_max = pool_ids.shape
@@ -260,7 +299,7 @@ def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
         first = flat_valid
 
     dists = _gathered_distance(data, flat_ids, flat_valid, queries, metric,
-                               hop.inf)
+                               hop.inf, prescaled)
     if share_cache and cache_has.dtype != torch.bool:
         # first-occurrence lanes only: keys distinct within each row
         cache_has, c_found, _ = hashset.lookup_insert(cache_has, flat_ids,
@@ -269,13 +308,13 @@ def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
     elif share_cache:
         b2 = hop.b3[:, :, 0]
         need = flat_valid & ~cache_has[b2, flat_ids]
-        cache_has[b2, torch.where(need, flat_ids, n)] = True
+        cache_has[b2, torch.where(need, flat_ids, n)] = hop.true
         n_comp = (need & first).sum()
     else:
         n_comp = flat_valid.sum()
     n_fresh = flat_valid.sum()
     if not hash_visited:
-        visited[hop.b3, hop.m3, torch.where(valid, nbrs_safe, n)] = True
+        visited[hop.b3, hop.m3, torch.where(valid, nbrs_safe, n)] = hop.true
 
     cand_ids = torch.where(valid, nbrs, INVALID)
     cand_dist = torch.where(valid, dists.reshape(b, m, kx), float("inf"))
@@ -285,27 +324,48 @@ def _expand_all_graphs(graph_ids, data, queries, query_ids, unexp,
             n_comp)
 
 
-def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
-                data,                         # f32[n, d] | QuantizedData
-                queries: torch.Tensor,        # f32[b, d]
-                query_ids: torch.Tensor,      # int32[b]; -1 = external
-                row_mask: torch.Tensor,       # bool[b]; False = padding row
-                ef: torch.Tensor,             # int32[m] per-graph pool size
-                entry: torch.Tensor,          # int32[b, m] entry points
-                cache_d: torch.Tensor | None = None,
-                cache_has: torch.Tensor | None = None,
-                *,
-                ef_max: int,
-                max_hops: int,
-                share_cache: bool,
-                metric: str = "l2",
-                visited_impl: str = "dense",
-                expand_width: int = 1) -> SearchResult:
-    """Lockstep beam search of b queries over m graphs (one device).
+class BeamState:
+    """The hop loop's state between ``search_begin`` and ``search_end``.
 
-    A ``QuantizedData`` corpus was prepared before quantization, so for
-    cosine only the queries normalize here."""
-    global HOST_SYNCS
+    Per-search constants (the graphs, corpus, queries, knobs and the
+    ``_Hop`` tensors) beside the carried tensors: pools, expanded marks,
+    visit state and V_delta membership, the two distance counts, the
+    device hop count ``hop_ctr`` and the chunked loop's "still
+    unexpanded" flag ``more``."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    CARRIED = ("pool_ids", "pool_dist", "expanded", "visited", "cache_has")
+
+    def carried(self) -> tuple:
+        return tuple(getattr(self, k) for k in self.CARRIED)
+
+    def unexpanded(self) -> torch.Tensor:
+        """bool[b, m, ef_max]: pool slots within ef not yet expanded."""
+        return (self.pool_ids != INVALID) & ~self.expanded & self.slot_mask
+
+
+def search_begin(graph_ids: torch.Tensor,      # int32[m, n, Mx]
+                 data,                         # f32[n, d] | QuantizedData
+                 queries: torch.Tensor,        # f32[b, d]
+                 query_ids: torch.Tensor,      # int32[b]; -1 = external
+                 row_mask: torch.Tensor,       # bool[b]; False = padding row
+                 ef: torch.Tensor,             # int32[m] per-graph pool size
+                 entry: torch.Tensor,          # int32[b, m] entry points
+                 cache_d: torch.Tensor | None = None,
+                 cache_has: torch.Tensor | None = None,
+                 *,
+                 ef_max: int,
+                 max_hops: int,
+                 share_cache: bool,
+                 metric: str = "l2",
+                 visited_impl: str = "dense",
+                 expand_width: int = 1) -> BeamState:
+    """A search's state before its first hop: pool[0] = (entry, delta(q,
+    entry)) for each (query, graph), visit state and V_delta holding the
+    entry (Alg. 1 line 2).  Makes no host sync, so a captured CUDA graph
+    can hold it."""
     if visited_impl not in VISITED_IMPLS:
         raise ValueError(
             f"visited_impl {visited_impl!r} not in {VISITED_IMPLS}")
@@ -322,6 +382,9 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
     if not quantized:
         data = data.contiguous()
     queries = queries.contiguous()
+    # the int8 kernels' query operands, once a search (not once a hop)
+    prescaled = (ops.prescale(queries, data.scale, metric) if quantized
+                 else None)
     m, n, mx = graph_ids.shape
     b = queries.shape[0]
     dev = queries.device
@@ -329,7 +392,6 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
     brange = hop.b3[:, 0, 0]
     slot_mask = hop.slots[None, :] < ef[:, None]                 # (m, ef_max)
 
-    # ---- init: pool[0] = (ep, delta(q, ep)), Alg. 1 line 2 ----------------
     pool_ids = torch.full((b, m, ef_max), INVALID, dtype=torch.int32,
                           device=dev)
     pool_dist = torch.full((b, m, ef_max), float("inf"), device=dev)
@@ -355,7 +417,8 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
     ok_all = ((entry != INVALID) & (entry != query_ids[:, None])
               & row_mask[:, None])                               # (b, m)
     ep_all = torch.clamp_min(entry, 0).to(torch.int32)
-    d0_all = _gathered_distance(data, ep_all, ok_all, queries, metric)
+    d0_all = _gathered_distance(data, ep_all, ok_all, queries, metric,
+                                prescaled=prescaled)
     for i in range(m):
         ep, ok, ep_safe = entry[:, i], ok_all[:, i], ep_all[:, i]
         if share_cache and cache_hashed:
@@ -364,7 +427,7 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
             n_comp += (ok & ~c_found[:, 0]).sum()
         elif share_cache:
             need = ok & ~cache_has[brange, ep_safe]
-            cache_has[brange, torch.where(need, ep_safe, n)] = True
+            cache_has[brange, torch.where(need, ep_safe, n)] = hop.true
             n_comp += need.sum()
         else:
             n_comp += ok.sum()
@@ -375,31 +438,172 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
             visited[:, i] = hashset.lookup_insert(
                 visited[:, i], ep_safe[:, None], ok[:, None])[0]
         else:
-            visited[brange, i, torch.where(ok, ep_safe, n)] = True
+            visited[brange, i, torch.where(ok, ep_safe, n)] = hop.true
 
     # Padding rows (row_mask False) start with an empty pool, so the
     # unexpanded mask is already restricted to live rows.
+    return BeamState(
+        graph_ids=graph_ids, data=data, queries=queries,
+        query_ids=query_ids, metric=metric, share_cache=share_cache,
+        width=width, max_hops=max_hops, hop=hop, slot_mask=slot_mask,
+        prescaled=prescaled, n=n, cache_hashed=cache_hashed,
+        pool_ids=pool_ids, pool_dist=pool_dist, expanded=expanded,
+        visited=visited, cache_d=cache_d, cache_has=cache_has,
+        n_fresh=n_fresh, n_comp=n_comp,
+        hop_ctr=torch.zeros((), dtype=torch.int64, device=dev),
+        more=torch.ones((), dtype=torch.bool, device=dev))
+
+
+def _hop(st: BeamState, unexp: torch.Tensor) -> None:
+    """Expand ``unexp`` in every graph: one hop, the carried tensors
+    rebound to the hop's results, the counts added in place."""
+    (st.pool_ids, st.pool_dist, st.expanded, st.visited, st.cache_has, nf,
+     nc) = _expand_all_graphs(
+        st.graph_ids, st.data, st.queries, st.query_ids, unexp, st.pool_ids,
+        st.pool_dist, st.expanded, st.visited, st.cache_has, st.share_cache,
+        st.metric, st.width, st.hop, st.prescaled)
+    st.n_fresh += nf
+    st.n_comp += nc
+
+
+def hop_chunk(st: BeamState, hops: int = HOP_CHUNK) -> None:
+    """``hops`` hops with the stop rule evaluated on the device.
+
+    Each hop expands ``unexp & (any(unexp) & (hop_ctr < max_hops))``, the
+    reference's ``while_loop`` condition, and advances ``hop_ctr`` only
+    when that holds; once it fails the hop is an exact no-op, so ``hops``
+    need not divide ``max_hops``.  The carried tensors are written back
+    into the ones the chunk started from and ``more`` is set, so a
+    captured chunk reads and writes the same memory on every replay."""
+    start = st.carried()
+    for _ in range(hops):
+        unexp = st.unexpanded()
+        live = unexp.any() & (st.hop_ctr < st.max_hops)
+        _hop(st, unexp & live)
+        st.hop_ctr += live
+    st.more.copy_(st.unexpanded().any() & (st.hop_ctr < st.max_hops))
+    for name, dst in zip(BeamState.CARRIED, start):
+        src = getattr(st, name)
+        if src is not dst:
+            dst.copy_(src)
+            setattr(st, name, dst)
+
+
+class FlagReader:
+    """The host's read of a chunk's ``more`` flag.
+
+    On the card the flag is copied into a pinned slot (two slots, used in
+    turn) behind the chunk and an event is recorded after it; a read waits
+    on that event only.  On the CPU the flag is kept as it stood."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.host = torch.zeros(2, dtype=torch.bool, pin_memory=True)
+            self.events = [torch.cuda.Event(), torch.cuda.Event()]
+        else:
+            self.kept = [None, None]
+
+    def post(self, c: int, more: torch.Tensor) -> None:
+        if self.cuda:
+            self.host[c % 2].copy_(more, non_blocking=True)
+            self.events[c % 2].record()
+        else:
+            self.kept[c % 2] = bool(more)
+
+    def read(self, c: int) -> bool:
+        global HOST_SYNCS
+        HOST_SYNCS += 1
+        if self.cuda:
+            self.events[c % 2].synchronize()
+            return bool(self.host[c % 2])
+        return self.kept[c % 2]
+
+
+def drive_chunks(run_chunk, st: BeamState, reader: FlagReader) -> int:
+    """Run hop chunks until the flag of one reads False; returns the
+    number of chunks run.
+
+    Chunk c+1 is enqueued before chunk c's flag is read, so the read never
+    leaves the device idle; the hops of that extra chunk are no-ops.  A
+    search of H hops reads max(1, ceil(H / HOP_CHUNK)) flags."""
+    run_chunk()
+    reader.post(0, st.more)
+    c = 0
+    while True:
+        run_chunk()
+        reader.post(c + 1, st.more)
+        if not reader.read(c):
+            return c + 2
+        c += 1
+
+
+def search_end(st: BeamState, hops=None) -> SearchResult:
+    """The search's result: slots beyond each graph's ef masked out (they
+    are not part of C(u)), V_delta without its trash column, and the hop
+    count (``hop_ctr`` unless the caller counted on the host)."""
+    cache_has = st.cache_has
+    if st.share_cache and not st.cache_hashed:
+        cache_has = cache_has[:, :st.n]
+    pool_ids = torch.where(st.slot_mask, st.pool_ids, INVALID)
+    pool_dist = torch.where(st.slot_mask, st.pool_dist, float("inf"))
+    return SearchResult(pool_ids, pool_dist, st.n_fresh, st.n_comp,
+                        st.hop_ctr if hops is None else hops, st.cache_d,
+                        cache_has)
+
+
+def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
+                data,                         # f32[n, d] | QuantizedData
+                queries: torch.Tensor,        # f32[b, d]
+                query_ids: torch.Tensor,      # int32[b]; -1 = external
+                row_mask: torch.Tensor,       # bool[b]; False = padding row
+                ef: torch.Tensor,             # int32[m] per-graph pool size
+                entry: torch.Tensor,          # int32[b, m] entry points
+                cache_d: torch.Tensor | None = None,
+                cache_has: torch.Tensor | None = None,
+                *,
+                ef_max: int,
+                max_hops: int,
+                share_cache: bool,
+                metric: str = "l2",
+                visited_impl: str = "dense",
+                expand_width: int = 1) -> SearchResult:
+    """Lockstep beam search of b queries over m graphs (one device), one
+    host sync per hop.
+
+    A ``QuantizedData`` corpus was prepared before quantization, so for
+    cosine only the queries normalize here."""
+    global HOST_SYNCS
+    st = search_begin(graph_ids, data, queries, query_ids, row_mask, ef,
+                      entry, cache_d, cache_has, ef_max=ef_max,
+                      max_hops=max_hops, share_cache=share_cache,
+                      metric=metric, visited_impl=visited_impl,
+                      expand_width=expand_width)
     hops = 0
     while hops < max_hops:
-        unexp = (pool_ids != INVALID) & ~expanded & slot_mask
+        unexp = st.unexpanded()
         HOST_SYNCS += 1
         if not bool(unexp.any()):             # the one host sync per hop
             break
-        (pool_ids, pool_dist, expanded, visited, cache_has, nf,
-         nc) = _expand_all_graphs(
-            graph_ids, data, queries, query_ids, unexp, pool_ids,
-            pool_dist, expanded, visited, cache_has, share_cache, metric,
-            width, hop)
-        n_fresh += nf
-        n_comp += nc
+        _hop(st, unexp)
         hops += 1
-    if share_cache and not cache_hashed:
-        cache_has = cache_has[:, :n]
-    # Mask out slots beyond each graph's ef (they are not part of C(u)).
-    pool_ids = torch.where(slot_mask, pool_ids, INVALID)
-    pool_dist = torch.where(slot_mask, pool_dist, float("inf"))
-    return SearchResult(pool_ids, pool_dist, n_fresh, n_comp, hops,
-                        cache_d, cache_has)
+    return search_end(st, hops)
+
+
+def beam_search_chunked(graph_ids, data, queries, query_ids, row_mask, ef,
+                        entry, cache_d=None, cache_has=None, *, ef_max: int,
+                        max_hops: int, share_cache: bool, metric: str = "l2",
+                        visited_impl: str = "dense",
+                        expand_width: int = 1) -> SearchResult:
+    """``beam_search`` on the chunked hop loop (one flag read a chunk,
+    the hop count on the device): the same result, eagerly."""
+    st = search_begin(graph_ids, data, queries, query_ids, row_mask, ef,
+                      entry, cache_d, cache_has, ef_max=ef_max,
+                      max_hops=max_hops, share_cache=share_cache,
+                      metric=metric, visited_impl=visited_impl,
+                      expand_width=expand_width)
+    drive_chunks(lambda: hop_chunk(st), st, FlagReader(queries.device))
+    return search_end(st)
 
 
 def default_max_hops(ef_max: int, expand_width: int = 1) -> int:

@@ -5,8 +5,10 @@ over the dataset.  Each insertion batch searches the graph frozen at batch
 start, shares one V_delta across the m per-node searches (ESO), chains the
 m prunes through mPrune (EPO, group sorted ascending by alpha), and commits
 forward + reverse edges with overflow re-prune.  The batch loop is the
-reference's ``per_batch`` strategy, driven from the host; counters stay on
-the device and reach the host once per build.
+reference's ``per_batch`` strategy driven from the host, or, with
+``build_impl="fused"``, ``core/build.py``'s ``fused_vamana_pass`` (each
+batch step one captured CUDA graph on the card); both give the same graphs
+and counters, which stay on the device and reach the host once per build.
 """
 from __future__ import annotations
 
@@ -16,12 +18,11 @@ import numpy as np
 import torch
 
 from repro_torch import as_tensor, resolve_device
-from repro_torch.core import commit, graph, prune, search
+from repro_torch.core import build as build_lib
+from repro_torch.core import graph, search
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.counters import BuildCounters, CounterTape
 from repro_torch.core.graph import INVALID, MultiGraph
-
-BUILD_IMPLS = ("per_batch", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,12 +56,7 @@ def build_multi_vamana(data, params: list[VamanaParams], *,
                        expand_width: int = 1,
                        build_impl: str = "per_batch",
                        device: "str | torch.device" = "cuda") -> BuildResult:
-    if build_impl not in BUILD_IMPLS:
-        raise ValueError(f"build_impl {build_impl!r} not in {BUILD_IMPLS}")
-    if build_impl == "fused":
-        raise NotImplementedError(
-            "build_impl='fused' is not ported yet: ROADMAP.md queue 1, the "
-            "fused build (a captured CUDA graph or a hand kernel)")
+    build_lib.resolve_build_impl(build_impl)
     dev = resolve_device(device)
     met = metric_lib.resolve(metric)
     data = met.prepare(as_tensor(data, dev, torch.float32)).contiguous()
@@ -98,29 +94,31 @@ def build_multi_vamana(data, params: list[VamanaParams], *,
 
     # ---- main pass (Alg. 6 l.4-12), batched ---------------------------------
     b = batch_size
-    brange = torch.arange(b, dtype=torch.int32, device=dev)
-    entry = torch.full((b, m), ep, dtype=torch.int32, device=dev)
-    for off in range(0, n, b):
-        cnt = min(b, n - off)
-        row_mask = brange < cnt
-        u = torch.where(row_mask, off + brange, n)
-        queries = data[torch.clamp_max(u, n - 1).long()]
-        res = search.beam_search(
-            gids, data, queries, torch.where(row_mask, u, INVALID),
-            row_mask, L, entry, ef_max=L_max, max_hops=hops,
-            share_cache=use_eso, metric=kform, visited_impl=visited_impl,
-            expand_width=expand_width)
-
-        cand_ids = res.pool_ids.transpose(0, 1)               # (m, b, L_max)
-        cand_dist = res.pool_dist.transpose(0, 1)
-        pruned, nb, nc = prune.multi_prune(
-            data, cand_ids, cand_dist, cand_ids != INVALID, M, alpha,
-            m_max=M_max, use_epo=use_epo, metric=kform)
-        gids, gdist, rev_checks = commit.commit_group(
-            data, gids, gdist, u, pruned, row_mask, M, alpha,
-            k_in=k_in, m_max=M_max, metric=kform)
-        tape.log(res.n_fresh, res.n_computed, nb + rev_checks,
-                 nc + rev_checks)
+    if build_impl == "fused":
+        # every batch step one replay of a captured step (core/build.py)
+        gids, gdist, log = build_lib.fused_vamana_pass(
+            gids, gdist, data, L, M, alpha, ep, batch_size=b, ef_max=L_max,
+            max_hops=hops, share_cache=use_eso, use_epo=use_epo,
+            metric=kform, visited_impl=visited_impl,
+            expand_width=expand_width, k_in=k_in, m_max=M_max)
+        tape.log_many(log)
+    else:
+        brange = torch.arange(b, dtype=torch.int32, device=dev)
+        entry = torch.full((b, m), ep, dtype=torch.int32, device=dev)
+        for off in range(0, n, b):
+            cnt = min(b, n - off)
+            row_mask = brange < cnt
+            u = torch.where(row_mask, off + brange, n)
+            queries = data[torch.clamp_max(u, n - 1).long()]
+            res = search.beam_search(
+                gids, data, queries, torch.where(row_mask, u, INVALID),
+                row_mask, L, entry, ef_max=L_max, max_hops=hops,
+                share_cache=use_eso, metric=kform, visited_impl=visited_impl,
+                expand_width=expand_width)
+            gids, gdist, row = build_lib.insert_tail(
+                res, gids, gdist, data, u, row_mask, M, alpha,
+                use_epo=use_epo, metric=kform, k_in=k_in, m_max=M_max)
+            tape.log_many(row)
 
     tape.drain_into(ctr)          # the build's ONE counter host sync
     g = MultiGraph(ids=gids[inv_order], dist=gdist[inv_order])

@@ -1,4 +1,5 @@
-"""The metric boundary in front of the distance kernels, and attention.
+"""The metric boundary in front of the distance kernels, attention, and
+the prune's recurrence.
 
 Port of ``repro/kernels/ops.py:44-185``: cosine unit-normalizes its inputs
 here so the kernels only see the "l2" and "ip" forms (the int8 forms
@@ -18,6 +19,7 @@ from repro_torch.core import metric as metric_lib
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gather_distance as _gd
 from repro_torch.kernels import l2_distance as _l2
+from repro_torch.kernels import prune as _pr
 
 
 def pairwise_distance(q: torch.Tensor, x: torch.Tensor,
@@ -104,16 +106,30 @@ def gather_distance_q(u, codes, scale, cnorms, cached=None, mask=None,
 
 def gather_distance_q_ids(u, quant: metric_lib.QuantizedData, ids,
                           cached=None, mask=None,
-                          metric: "str | metric_lib.Metric" = "l2"
-                          ) -> torch.Tensor:
+                          metric: "str | metric_lib.Metric" = "l2", *,
+                          prescaled=None) -> torch.Tensor:
     """V_delta-aware gathered distances to ``quant.codes[ids]``, read
-    in-kernel with their norms: the (b, k, d) int8 slab is never built."""
+    in-kernel with their norms: the (b, k, d) int8 slab is never built.
+
+    ``prescaled`` is ``prescale(u, quant.scale, metric)``, passed by a
+    caller that prices the same queries many times (a search's hops)."""
     met = metric_lib.resolve(metric)
-    qs, qn = prescale(u, quant.scale, met)
+    qs, qn = (prescaled if prescaled is not None
+              else prescale(u, quant.scale, met))
     cached, mask = _defaults(u, ids.shape[0], ids.shape[1], cached, mask)
     return _gd.gather_distance_sq8_ids(qs, qn, quant.codes, quant.norms,
                                        ids.to(torch.int32).contiguous(),
                                        cached, mask, kernel=met.kernel)
+
+
+def prune_recurrence(valid, may_dominate, m_limit
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RNG pruning's acceptance recurrence over candidates ascending by
+    distance: bool[b, L], bool[b, L, L], int32[b] -> (processed, accepted)
+    bool[b, L].  A CUDA tensor launches the prune kernel, a CPU tensor
+    takes the plain loop."""
+    return _pr.prune_recurrence(valid.contiguous(), may_dominate.contiguous(),
+                                m_limit.to(torch.int32).contiguous())
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

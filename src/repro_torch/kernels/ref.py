@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the distance and attention kernels.
+"""Plain PyTorch versions of the distance, attention and prune kernels.
 
 Port of ``repro/kernels/ref.py:14-267``: each function defines the semantics
 its CUDA kernel must match, runs as the CPU path of the wrapper, and is the
-yardstick the kernel is checked against on the card.
+yardstick the kernel is checked against on the card.  The prune
+recurrence has no Pallas kernel in the reference (an XLA ``fori_loop``,
+``repro/core/prune.py:104``); its plain version is the loop below.
 """
 from __future__ import annotations
 
@@ -75,6 +77,29 @@ def gather_distance_adc_ref(qs, qn, codes, cn, cached=None, mask=None,
         d2 = torch.where(mask, d2, cached.to(torch.float32))
     return d2
 
+
+def prune_recurrence_ref(valid: torch.Tensor, may_dominate: torch.Tensor,
+                         m_limit: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RNG pruning's order-dependent acceptance loop (Alg. 2 lines 4-8).
+
+    valid bool[b, L] (candidates ascending by distance), may_dominate
+    bool[b, L, L] (``[:, j, w]``: an accepted w would prune j), m_limit
+    int32[b].  Candidate j is processed while fewer than m_limit are
+    accepted, and accepted when no earlier accepted member may dominate
+    it.  Returns (processed, accepted), bool[b, L]."""
+    b, L = valid.shape
+    accepted = torch.zeros((b, L), dtype=torch.bool, device=valid.device)
+    processed = torch.zeros((b, L), dtype=torch.bool, device=valid.device)
+    count = torch.zeros((b,), dtype=torch.int32, device=valid.device)
+    for j in range(L):
+        proc_j = valid[:, j] & (count < m_limit)                 # (b,)
+        dominated = (accepted & may_dominate[:, j]).any(-1)
+        acc_j = proc_j & ~dominated
+        processed[:, j] = proc_j
+        accepted[:, j] = acc_j
+        count += acc_j
+    return processed, accepted
 
 
 # ------------------------------------------------------ flash attention ---

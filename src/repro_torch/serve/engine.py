@@ -34,7 +34,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import graph as graph_lib
 from repro_torch.core import metric as metric_lib
-from repro_torch.core.vamana import BUILD_IMPLS
+from repro_torch.core.build import BUILD_IMPLS
 from repro_torch.models import model as M
 from repro_torch.serve import retrieval as retrieval_lib
 

@@ -10,7 +10,6 @@ pins (tests/test_builders.py), held on the port.
 """
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.core import eval as jeval
@@ -98,9 +97,3 @@ def test_gaussian_build_close_to_reference():
     assert abs(rec_t - rec_j) <= 0.01, (rec_t, rec_j)
     assert rec_t >= 0.9
 
-
-def test_fused_build_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvamana.build_multi_vamana(np.zeros((8, 4), np.float32),
-                                   [tvamana.VamanaParams(4, 2, 1.0)],
-                                   build_impl="fused", device="cpu")

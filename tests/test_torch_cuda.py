@@ -279,6 +279,119 @@ def test_card_serving_equals_cpu_on_integer_data(card):
         torch.testing.assert_close(o_gpu.cpu(), o_cpu, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("L", [1, 16, 48, 128, 257])
+@pytest.mark.parametrize("b", [1, 256, 8192])
+@pytest.mark.parametrize("limit", ["early", "never"])
+def test_prune_kernel_matches_plain(card, L, b, limit):
+    """The recurrence is boolean: bit for bit, with m_limit reached early
+    (1-3 accepted) and never (L + 1)."""
+    from repro_torch.kernels import prune as prk
+    gen = torch.Generator(device=card).manual_seed(b + L)
+    valid = torch.rand((b, L), generator=gen, device=card) < 0.8
+    md = torch.rand((b, L, L), generator=gen, device=card) < 0.1
+    lim = (torch.randint(1, 4, (b,), generator=gen, device=card)
+           if limit == "early" else torch.full((b,), L + 1, device=card)
+           ).to(torch.int32)
+    before = prk.LAUNCHES
+    got = prk.prune_recurrence(valid, md, lim)
+    assert prk.LAUNCHES == before + 1
+    want = prk.prune_recurrence_plain(valid, md, lim)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _fused_inputs():
+    from repro_torch.core import vamana
+    data = _data((600, 16), True, 8, torch.device("cpu"))
+    ps = [vamana.VamanaParams(32, 12, 1.1), vamana.VamanaParams(24, 16, 1.3)]
+    return data, ps, dict(seed=1, batch_size=128)
+
+
+def test_card_fused_build_equals_per_batch_and_cpu(card):
+    """Fused on the card == per_batch on the card == fused on the CPU, in
+    all visit states and with sharing on and off."""
+    from repro_torch.core import vamana
+    data, ps, kw = _fused_inputs()
+    for visited_impl in ("dense", "hash"):
+        for sharing in (True, False):
+            kw2 = dict(kw, visited_impl=visited_impl, use_eso=sharing,
+                       use_epo=sharing)
+            fused = vamana.build_multi_vamana(data, ps, build_impl="fused",
+                                              device="cuda", **kw2)
+            per = vamana.build_multi_vamana(data, ps, build_impl="per_batch",
+                                            device="cuda", **kw2)
+            cpu = vamana.build_multi_vamana(data, ps, build_impl="fused",
+                                            device="cpu", **kw2)
+            for other in (per, cpu):
+                assert torch.equal(fused.g.ids.cpu(), other.g.ids.cpu())
+                assert torch.equal(fused.g.dist.cpu(), other.g.dist.cpu())
+                assert fused.counters == other.counters
+
+
+def test_card_fused_build_replays_without_python_stages(card, monkeypatch):
+    """After capture a fused build calls no stage function from Python:
+    a second build of the same shapes replays ceil(n / b) steps and
+    nothing else, and its launch counters move as the per_batch build's
+    do by the captured launches."""
+    from repro_torch.core import build, commit, prune, search, vamana
+    data, ps, kw = _fused_inputs()
+    vamana.build_multi_vamana(data, ps, build_impl="fused", device="cuda",
+                              **kw)                 # captures the step
+    calls = {}
+    for mod, name in ((search, "beam_search"), (search, "search_begin"),
+                      (search, "hop_chunk"), (search, "search_end"),
+                      (search, "beam_search_chunked"), (prune, "rng_prune"),
+                      (prune, "multi_prune"), (commit, "commit_group"),
+                      (commit, "add_reverse_edges"),
+                      (build, "insert_tail")):
+        fn = getattr(mod, name)
+
+        def shim(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, name, shim)
+    replays, syncs = build.REPLAYS, search.HOST_SYNCS
+    res = vamana.build_multi_vamana(data, ps, build_impl="fused",
+                                    device="cuda", **kw)
+    n_batches = -(-600 // 128)
+    assert calls == {}
+    assert build.REPLAYS - replays == n_batches
+    assert search.HOST_SYNCS - syncs >= n_batches
+    monkeypatch.undo()
+    cpu = vamana.build_multi_vamana(data, ps, build_impl="fused",
+                                    device="cpu", **kw)
+    assert torch.equal(res.g.ids.cpu(), cpu.g.ids)
+
+
+def test_card_insert_batch_replays_equal_eager_step(card):
+    """insert_batch on the card (captured, then replayed with new inputs)
+    == the eager step on the CPU, on all six outputs, for two batches."""
+    from repro_torch.core import build, graph
+    data = _data((300, 8), True, 9, torch.device("cpu"))
+    n, b, m_max = 300, 64, 8
+    ids = graph.random_knng_ids(2, n, m_max)
+    dist = graph.with_distances(data, ids)
+    gids, gdist = torch.stack([ids, ids]), torch.stack([dist, dist])
+    kw = dict(ef_max=16, max_hops=40, share_cache=True, use_epo=True,
+              metric="l2", visited_impl="dense", expand_width=1, k_in=4,
+              m_max=m_max)
+    for off in (0, 256):
+        brange = torch.arange(b, dtype=torch.int32)
+        row_mask = off + brange < n
+        u = torch.where(row_mask, off + brange, n)
+        args = [gids, gdist, data, u, row_mask,
+                data[torch.clamp_max(u, n - 1).long()],
+                torch.tensor([12, 16], dtype=torch.int32),
+                torch.tensor([6, 8], dtype=torch.int32),
+                torch.tensor([1.0, 1.2]),
+                torch.full((b, 2), 5, dtype=torch.int32), None, None]
+        want = build.insert_batch(*args, **kw)
+        got = build.insert_batch(*[a if a is None else a.to(card)
+                                   for a in args], **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        gids, gdist = want[0], want[1]
+
+
 # (dtype, rtol, atol): the reference's 5e-4 in fp32 (tests/test_kernels.py);
 # one bf16 rounding of the output in bf16
 FA_DTYPES = {"float32": (torch.float32, 5e-4, 5e-4),

@@ -143,18 +143,19 @@ def test_tombstones_match_reference():
 
 def test_sharded_and_fused_raise_not_implemented():
     """What the port leaves to later slices raises, naming the ROADMAP
-    item: sharded serving (item 13) and the fused build (item 6)."""
+    item: sharded serving (item 13).  The fused build, once on that list,
+    is ported: build_index's build_impl="fused" builds the per_batch
+    index."""
     from repro_torch.core import vamana
     from repro_torch.serve import retrieval
     keys = np.zeros((16, 4), np.float32)
     p = vamana.VamanaParams(4, 2, 1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
         retrieval.build_index(keys, keys, p, num_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        retrieval.build_index(keys, keys, p, build_impl="fused",
-                              device="cpu")
-    idx = retrieval.build_index(keys + np.eye(16, 4, dtype=np.float32),
-                                keys, p, batch_size=16, device="cpu")
+    idx, fused = (retrieval.build_index(
+        keys + np.eye(16, 4, dtype=np.float32), keys, p, batch_size=16,
+        build_impl=impl, device="cpu") for impl in ("per_batch", "fused"))
+    assert torch.equal(idx.graph_ids, fused.graph_ids)
     for kw in (dict(routed_shards=2), dict(shard_mask=[True, False])):
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
             retrieval.retrieval_attention(idx, keys[:2], top_k=2, ef=4, **kw)

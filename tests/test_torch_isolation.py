@@ -37,8 +37,12 @@ def test_port_imports_neither_jax_nor_reference():
 
 def test_cuda_source_for_every_kernel_on_the_path():
     """Each kernel module names a CUDA entry point that csrc/ defines, and
-    keeps a launch counter for it."""
-    from repro_torch.kernels import gather_distance, l2_distance
+    keeps a launch counter for it; the build lists every source, the
+    prune recurrence's prune.cu among them."""
+    from repro_torch.kernels import _build, gather_distance, l2_distance
+    assert set(_build.SOURCES) == {
+        p.stem for p in (PKG / "kernels" / "csrc").glob("*.cu")}
+    assert set(_build.SOURCES) == {"distance", "flash_attention", "prune"}
     cu = (PKG / "kernels" / "csrc" / "distance.cu").read_text()
     for mod, entry, body, counter in (
             (gather_distance, "gather_distance_f32",
@@ -90,6 +94,24 @@ def test_cuda_source_for_every_kernel_on_the_path():
     assert "launch_gather_sq8<" in body("int gather_distance_sq8(")
     assert "gather_distance_sq8_kernel<KIND, true>" in body(
         "void launch_gather_sq8(")
+
+
+def test_prune_source_defines_the_wrapper_entry_point():
+    """The prune wrapper names the entry point prune.cu defines, builds
+    that source and keeps its launch counter; rng_prune reaches it."""
+    from repro_torch.core import prune as core_prune
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prune as prk
+    cu = (PKG / "kernels" / "csrc" / "prune.cu").read_text()
+    wrapper = pathlib.Path(prk.__file__).read_text()
+    assert "int prune_recurrence(" in cu
+    assert "prune_recurrence_kernel<NW><<<" in cu
+    assert "__ballot_sync" in cu
+    assert '_build.load("prune")' in wrapper and "LAUNCHES += 1" in wrapper
+    assert isinstance(prk.LAUNCHES, int)
+    assert "_pr.prune_recurrence(" in pathlib.Path(ops.__file__).read_text()
+    assert "ops.prune_recurrence(" in pathlib.Path(
+        core_prune.__file__).read_text()
 
 
 def test_flash_attention_source_defines_the_wrapper_entry_points():
