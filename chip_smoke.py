@@ -39,16 +39,19 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  fp32 flash body (``fp32_body``) causal at soft-cap 0 at
                  (1, 16, 8192, 224) and lm_width's (2, 16, 64, 224),
                  beside its fp32-FMA bound and SDPA in fp32; the prune
-                 recurrence bit for bit at the forward prune's (256, 128)
-                 and the reverse re-prune's (8192, 48) (and two edge
-                 shapes), on geometric and random inputs, m_limit reached
+                 recurrence bit for bit at the forward prune's (256, 128),
+                 NSG's (256, 160) and (256, 88) and the reverse re-prune's
+                 (8192, 48) (and two edge shapes), on geometric and
+                 random inputs, m_limit reached
                  and not, timed at both path shapes beside the bytes its
                  data needs.
 4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
-                 in [-4, 4]) built with 4 configs: the fused build on the
-                 card == the per_batch build on the card == the fused
-                 build on the CPU (graphs, edge lengths, counters);
-                 multi == single.
+                 in [-4, 4]) built with each family's 4 configs (Vamana,
+                 HNSW, NSG): the fused build on the card == the per_batch
+                 build on the card == the fused build on the CPU (graphs,
+                 edge lengths, counters, entry; HNSW's levels and top
+                 layer); multi == single for the configs in the group's
+                 degree bucket.
 5. main       -- FastPGT's estimation path at SIFT's width d=128: clustered
                  data (n=50k by default; the paper's corpora hold 1M
                  vectors), exact ground truth, then grouped (group_size=4,
@@ -64,6 +67,21 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  window, exact_knn's time at the ground truth's shape
                  split into the pairwise kernel and the stable sort (the
                  ``exact_knn_split`` line).
+5b. hnsw, nsg -- the same estimation for the paper's other two families on
+                 the main path's data and ground truth: HNSW (efc, M) and
+                 NSG (K, L, M), 4 configs each in the main path's degree
+                 bucket, grouped and baseline fused, a per_batch grouped
+                 estimation beside them.  Asserted as for main: identical
+                 recall sweeps grouped / baseline / per_batch, fused ==
+                 per_batch counters, an ESO+EPO saving, best recall@10 >=
+                 0.9, no stage function called from Python after capture
+                 (HNSW's eager ef=1 descent told apart), the insert
+                 steps' host syncs equal to the chunks their hops need,
+                 gather, prune and (NSG) pairwise launched.  Printed:
+                 HNSW's level histogram and the descent's seconds, syncs
+                 and share of each build; NSG's KNNG seconds, split on one
+                 block into the pairwise kernel and the stable sort, and
+                 the repair's fixes, seconds and ``connect`` count.
 6. serve_exact -- the serving path on a scale-1 integer corpus (n=2000,
                  d=128): index built (fused) on the card and on the CPU,
                  then
@@ -105,9 +123,9 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  max_seq 512): 8 requests of 32-token prompts, 32 new
                  tokens each; tokens/s and ms per decode step.
 
-Launch counters are zeroed just before each path (main, the serving
-ground truth ``serve_gt``, serve, and the LM phases) and read just after;
-every kernel of that path must have launched.
+Launch counters are zeroed just before each path (main, hnsw, nsg, the
+serving ground truth ``serve_gt``, serve, and the LM phases) and read just
+after; every kernel of that path must have launched.
 
 ``--profile N`` runs only device, build and a profile of one fused
 grouped build of N points (after a first build that captures its step):
@@ -156,6 +174,16 @@ EF_GRID = [10, 20, 40, 80]
 N_CLUSTERS = 1024
 SPREAD = 1.0
 NQ = 1000                      # queries of the main path
+# The hnsw and nsg paths: the paper's other two PG families on the main
+# path's data, four configurations each in the main path's degree bucket
+# (M_max = 32, so HNSW's levels, m_l = 1/ln 32, and the grouped graphs
+# equal their single builds).
+HNSW_CONFIGS = [dict(efc=64, M=28), dict(efc=96, M=32), dict(efc=128, M=32),
+                dict(efc=128, M=28)]
+NSG_CONFIGS = [dict(K=24, L=64, M=28), dict(K=32, L=96, M=32),
+               dict(K=32, L=128, M=32), dict(K=28, L=128, M=30)]
+KNNG_BLOCK = 1024              # knng.exact_knn's block of query rows
+EXACT_N = 2000                 # integer corpus of the exact phase
 # The serving cell: one attention head of a 128K-token context at head
 # width 128 (Llama-3-8B), keys from the main path's geometry, the index's
 # default ip metric, the reference's serving knobs (hash state, W=4).
@@ -428,13 +456,16 @@ def _gather_row(gd, gen, n_corpus: int) -> dict:
     gerr = 0.0
     # main path: a grouped-build hop (k = m*Mx = 4*32), a single-build
     # hop, the grouped build's entry distances (k = m), an evaluation hop,
-    # the graph's edge lengths (with_distances); serve path: the fp32
-    # search's W=4 hop and the re-rank at ef=128 (64, 128), the re-rank at
-    # ef 32 and 64, the entry distance (64, 1), the serving build's entry
-    # distances (256, 1) and its edge lengths (N_CTX, 32); and a ragged
-    # shape off the float4 path
+    # the graph's edge lengths (with_distances); hnsw and nsg paths: the
+    # same hops (HNSW's descent too), a single NSG build's hop on its K=24
+    # KNNG, an upper-layer evaluation hop's entry (NQ, 1); serve path: the
+    # fp32 search's W=4 hop and the re-rank at ef=128 (64, 128), the
+    # re-rank at ef 32 and 64, the entry distance (64, 1), the serving
+    # build's entry distances (256, 1) and its edge lengths (N_CTX, 32);
+    # and a ragged shape off the float4 path
     shapes = [(256, 128, 128), (256, 32, 128), (256, 4, 128), (NQ, 32, 128),
-              (n_corpus, 32, 128), (BLOCK, 128, 128), (BLOCK, 64, 128),
+              (n_corpus, 32, 128), (256, 24, 128), (NQ, 1, 128),
+              (BLOCK, 128, 128), (BLOCK, 64, 128),
               (BLOCK, 32, 128), (BLOCK, 1, 128), (256, 1, 128),
               (N_CTX, 32, 128), (9, 21, 33)]
     for (b, k, d) in dict.fromkeys(shapes):
@@ -561,10 +592,14 @@ def _gather_sq8_row(gd, ops, ref, gen) -> dict:
 def _pairwise_row(l2, ops, mlib, gen, n_corpus: int) -> dict:
     import torch
     perr = 0.0
-    # ragged, the main path's ground truth, the serving ground truth (ip),
-    # and shapes that straddle the kernel's tile on both axes or take d
-    # off its 16-deep steps
-    shapes = [(37, 91, 50), (NQ, n_corpus, 128), (NQ, N_CTX, 128),
+    # ragged, the main path's ground truth, NSG's KNNG blocks (1024 rows
+    # and the last, shorter block) and a repair's (unreachable, n), the
+    # serving ground truth (ip), and shapes that straddle the kernel's
+    # tile on both axes or take d off its 16-deep steps
+    shapes = [(37, 91, 50), (NQ, n_corpus, 128),
+              (KNNG_BLOCK, n_corpus, 128),
+              (n_corpus % KNNG_BLOCK or KNNG_BLOCK, n_corpus, 128),
+              (37, n_corpus, 128), (NQ, N_CTX, 128),
               (129, 1000, 128), (257, 1000, 128), (200, 130, 100),
               (1, 300, 4)]
     for (a, b_, d) in dict.fromkeys(shapes):
@@ -949,12 +984,15 @@ def _prune_bytes(valid, md, processed, accepted) -> float:
 
 def _prune_row(prk, gen) -> dict:
     """The prune recurrence kernel against its plain loop, bit for bit, at
-    the forward prune's (256, 128) and the reverse re-prune's (8192, 48)
-    with M = 32, on geometric and random inputs, with m_limit reached and
-    never reached; timed at both path shapes on geometric inputs."""
+    the forward prune's (256, 128), NSG's forward prunes over pool + KNNG
+    row (256, 128 + 32) and (256, 64 + 24), and the reverse re-prune's
+    (8192, 48) with M = 32, on geometric and random inputs, with m_limit
+    reached and never reached; timed at both main path shapes on
+    geometric inputs."""
     import torch
     checked = []
-    for (b, L) in ((256, 128), (8192, 48), (1, 257), (300, 16)):
+    for (b, L) in ((256, 128), (256, 160), (256, 88), (8192, 48), (1, 257),
+                   (300, 16)):
         for geometric in (True, False):
             for limit in (32, L + 1):
                 valid, md, lim = _prune_inputs(gen, b, L, limit, geometric)
@@ -1035,54 +1073,87 @@ def phase_kernels(n_corpus: int) -> list[dict]:
     return out
 
 
-def phase_exact() -> None:
-    """n=2000 integer data: the fused build on the card == the per_batch
-    build on the card == the fused build on the CPU (ids, edge lengths,
-    counters, entry); multi == single on the card."""
+def _same_graphs(a, b) -> bool:
+    """Two build results of one family hold the same graphs and edge
+    lengths, entry, counters (and, for HNSW, levels and top layer)."""
+    import numpy as np
     import torch
-    from repro_torch.core import graph, vamana
+    if hasattr(a.g, "layer_ids"):
+        return (torch.equal(a.g.layer_ids.cpu(), b.g.layer_ids.cpu())
+                and torch.equal(a.g.layer_dist.cpu(), b.g.layer_dist.cpu())
+                and np.array_equal(a.g.levels, b.g.levels)
+                and (a.g.entry, a.g.top) == (b.g.entry, b.g.top)
+                and a.counters == b.counters)
+    return (torch.equal(a.g.ids.cpu(), b.g.ids.cpu())
+            and torch.equal(a.g.dist.cpu(), b.g.dist.cpu())
+            and a.entry == b.entry and a.counters == b.counters)
+
+
+def _single_equals_multi(family: str, multi, single, i: int, M: int) -> bool:
+    """Graph i of a grouped build == graph 0 of its single build (the
+    first M slots of every row, on every HNSW layer)."""
+    import torch
+    if family == "hnsw":
+        return torch.equal(multi.g.layer_ids[:, i][..., :M],
+                           single.g.layer_ids[:, 0][..., :M])
+    return torch.equal(multi.g.ids[i][:, :M], single.g.ids[0][:, :M])
+
+
+def phase_exact() -> None:
+    """n=2000 integer data, for each family (Vamana, HNSW, NSG): the fused
+    build on the card == the per_batch build on the card == the fused
+    build on the CPU (ids, edge lengths, counters, entry; HNSW's levels
+    and top layer too); multi == single on the card for the configs in
+    the group's degree bucket."""
+    import torch
+    from repro_torch.core import graph
+    from repro_torch.core.tuner import params as pspace
     gen = torch.Generator().manual_seed(1)
-    data = torch.clamp(torch.round(torch.randn((2000, 128), generator=gen)
-                                   * 2), -4, 4)
-    ps = [vamana.VamanaParams(**c) for c in CONFIGS]
-    builds, secs = {}, {}
-    for name, dev, impl in (("card_fused", "cuda", "fused"),
-                            ("card_per_batch", "cuda", "per_batch"),
-                            ("cpu_fused", "cpu", "fused")):
-        t0 = time.perf_counter()
-        builds[name] = vamana.build_multi_vamana(
-            data, ps, seed=0, batch_size=256, build_impl=impl, device=dev)
-        secs[name] = time.perf_counter() - t0
-    gpu = builds["card_fused"]
-    for name in ("card_per_batch", "cpu_fused"):
-        other = builds[name]
-        if not torch.equal(gpu.g.ids.cpu(), other.g.ids.cpu()):
-            frac = float((gpu.g.ids.cpu() == other.g.ids.cpu())
-                         .float().mean())
-            raise AssertionError(f"card fused graph != {name} graph "
-                                 f"({frac} equal)")
-        if not torch.equal(gpu.g.dist.cpu(), other.g.dist.cpu()):
-            raise AssertionError(f"card fused edge lengths != {name}'s")
-        if gpu.counters != other.counters or gpu.entry != other.entry:
-            raise AssertionError(f"counters differ: {gpu.counters} vs "
-                                 f"{name} {other.counters}")
-    # Sharing never changes a graph, given the same initial graph: the
-    # random initial KNNG is drawn at the group's degree bucket M_max (its
-    # rows are not prefixes across widths), so the single builds compared
-    # are those whose own bucket equals the group's.
-    m_max = graph.bucket(max(p.M for p in ps), 8)
-    same_init = [i for i, p in enumerate(ps) if graph.bucket(p.M, 8) == m_max]
-    for i in same_init:
-        p = ps[i]
-        single = vamana.build_vamana(data, p, seed=0, batch_size=256,
-                                     build_impl="fused", device="cuda")
-        if not torch.equal(gpu.g.ids[i][:, :p.M], single.g.ids[0][:, :p.M]):
-            raise AssertionError(f"multi != single for config {i}")
-    emit("exact", n=2000, d=128, identical_ids=True, identical_dist=True,
+    data = torch.clamp(torch.round(torch.randn((EXACT_N, 128),
+                                               generator=gen) * 2), -4, 4)
+    out = {}
+    for family, cfgs in (("vamana", CONFIGS), ("hnsw", HNSW_CONFIGS),
+                         ("nsg", NSG_CONFIGS)):
+        ps = [pspace.to_build_params(family, c) for c in cfgs]
+        kw = dict(seed=0, use_eso=True, use_epo=True, batch_size=256)
+        builds, secs = {}, {}
+        for name, dev, impl in (("card_fused", "cuda", "fused"),
+                                ("card_per_batch", "cuda", "per_batch"),
+                                ("cpu_fused", "cpu", "fused")):
+            t0 = time.perf_counter()
+            builds[name] = pspace.build_many(family, data, ps,
+                                             build_impl=impl, device=dev,
+                                             **kw)
+            secs[name] = time.perf_counter() - t0
+        gpu = builds["card_fused"]
+        for name in ("card_per_batch", "cpu_fused"):
+            if not _same_graphs(gpu, builds[name]):
+                raise AssertionError(f"{family}: card fused build != {name} "
+                                     f"build ({builds[name].counters} vs "
+                                     f"{gpu.counters})")
+        # Sharing never changes a graph, given the same start: Vamana's
+        # random initial KNNG is drawn at the group's degree bucket M_max
+        # (its rows are not prefixes across widths) and HNSW's levels use
+        # m_l = 1/ln(M_max), so the single builds compared are those whose
+        # own bucket equals the group's.
+        m_max = graph.bucket(max(p.M for p in ps), 8)
+        same = [i for i, p in enumerate(ps)
+                if graph.bucket(p.M, 8) == m_max]
+        for i in same:
+            single = pspace.build_many(family, data, [ps[i]], build_impl=
+                                       "fused", device="cuda",
+                                       **dict(kw, use_eso=False,
+                                              use_epo=False))
+            if not _single_equals_multi(family, gpu, single, i, ps[i].M):
+                raise AssertionError(f"{family}: multi != single for "
+                                     f"config {i}")
+        out[family] = dict(counters=gpu.counters.as_dict(), build_s=secs,
+                           multi_equals_single_configs=same)
+        if family == "hnsw":
+            out[family]["top"] = gpu.g.top
+    emit("exact", n=EXACT_N, d=128, identical_ids=True, identical_dist=True,
          identical_counters=True,
-         compared=["card_fused", "card_per_batch", "cpu_fused"],
-         multi_equals_single_configs=same_init,
-         counters=gpu.counters.as_dict(), build_s=secs)
+         compared=["card_fused", "card_per_batch", "cpu_fused"], **out)
 
 
 def zero_counts(counters: dict) -> None:
@@ -1122,62 +1193,120 @@ class BuildWatch:
     capture seconds; the hops of every per_batch build search of the
     grouped shape (``search.beam_search`` wrapped); and the stage
     functions' Python-level calls made after a fused build's first
-    replay, which must be none."""
+    replay, which must be none.
+
+    HNSW's greedy descent between layers (a ``beam_search`` at
+    ``ef_max=1``, eager in both impls) is told apart: its hops, host
+    syncs and seconds are recorded on their own, and the stage calls it
+    makes are not late calls of a captured step.  For NSG the initial
+    KNNG (``knng.build_knng``) and the repair (``nsg._repair_connectivity``)
+    are timed, and the repair's fixes and #dist recorded, per build; for
+    HNSW each build's level histogram."""
 
     STAGES = (("search", "search_begin"), ("search", "hop_chunk"),
               ("search", "search_end"), ("search", "beam_search_chunked"),
               ("prune", "multi_prune"), ("prune", "rng_prune"),
               ("commit", "commit_group"), ("commit", "add_reverse_edges"),
-              ("build", "insert_tail"))
+              ("build", "insert_tail"), ("build", "nsg_tail"))
 
     def __init__(self, m_grouped: int):
-        from repro_torch.core import build, commit, prune, search
+        from repro_torch.core import build, commit, knng, nsg, prune, search
         from repro_torch.core.tuner import params
         self.mods = dict(search=search, prune=prune, commit=commit,
-                         build=build, params=params)
+                         build=build, params=params, knng=knng, nsg=nsg)
         self.m_grouped = m_grouped
         self.builds, self.hops, self.late_calls = [], [], {}
         self._saved = []
         self._start = None
+        self._descent = 0
+        self._cur = None
 
     def __enter__(self):
+        import numpy as np
         import torch
         search, build = self.mods["search"], self.mods["build"]
-        params = self.mods["params"]
+        params, knng, nsg = (self.mods["params"], self.mods["knng"],
+                             self.mods["nsg"])
         build_many, beam_search = params.build_many, search.beam_search
+        build_knng, repair = knng.build_knng, nsg._repair_connectivity
 
         def watched_build(pg, data, bps, **kw):
             s0, r0 = search.HOST_SYNCS, build.REPLAYS
             c0 = build.CAPTURE_SECONDS
             self._start = r0
+            self._cur = cur = {}
             t0 = time.perf_counter()
             try:
                 res = build_many(pg, data, bps, **kw)
                 torch.cuda.synchronize()
             finally:
-                self._start = None
-            self.builds.append(dict(
-                impl=kw["build_impl"], m=len(bps),
-                seconds=time.perf_counter() - t0,
-                host_syncs=search.HOST_SYNCS - s0,
-                replays=build.REPLAYS - r0,
-                capture_s=build.CAPTURE_SECONDS - c0))
+                self._start = self._cur = None
+            cur.update(impl=kw["build_impl"], m=len(bps),
+                       seconds=time.perf_counter() - t0,
+                       host_syncs=search.HOST_SYNCS - s0,
+                       replays=build.REPLAYS - r0,
+                       capture_s=build.CAPTURE_SECONDS - c0)
+            if pg == "hnsw":
+                cur["levels_histogram"] = np.bincount(
+                    res.g.levels).tolist()
+            self.builds.append(cur)
             return res
 
         def watched_search(graph_ids, *a, **kw):
+            if kw.get("ef_max") == 1 and self._cur is not None:
+                s0 = search.HOST_SYNCS
+                t0 = time.perf_counter()
+                self._descent += 1
+                try:
+                    res = beam_search(graph_ids, *a, **kw)
+                finally:
+                    self._descent -= 1
+                cur = self._cur
+                for key, v in (("descent_s", time.perf_counter() - t0),
+                               ("descent_syncs", search.HOST_SYNCS - s0),
+                               ("descent_hops", int(res.hops)),
+                               ("descents", 1)):
+                    cur[key] = cur.get(key, 0) + v
+                return res
             res = beam_search(graph_ids, *a, **kw)
             if self._start is not None and \
                     graph_ids.shape[0] == self.m_grouped:
                 self.hops.append(int(res.hops))
             return res
 
+        def watched_knng(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = build_knng(*a, **kw)
+            torch.cuda.synchronize()
+            if self._cur is not None:
+                self._cur["knng_s"] = time.perf_counter() - t0
+            return out
+
+        def watched_repair(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g, n_fix, n_dist = repair(*a, **kw)
+            torch.cuda.synchronize()
+            if self._cur is not None:
+                rep = self._cur.setdefault("repair", dict(
+                    iterations=0, fixes=[], seconds=0.0, connect=0))
+                rep["iterations"] += 1
+                rep["fixes"].append(n_fix)
+                rep["seconds"] += time.perf_counter() - t0
+                rep["connect"] += n_dist
+            return g, n_fix, n_dist
+
         self._patch(params, "build_many", watched_build)
         self._patch(search, "beam_search", watched_search)
+        self._patch(knng, "build_knng", watched_knng)
+        self._patch(nsg, "_repair_connectivity", watched_repair)
         for mod, name in self.STAGES:
             fn = getattr(self.mods[mod], name)
 
             def staged(*a, _fn=fn, _name=name, **kw):
-                if self._start is not None and build.REPLAYS > self._start:
+                if self._start is not None and not self._descent and \
+                        build.REPLAYS > self._start:
                     self.late_calls[_name] = self.late_calls.get(_name, 0) + 1
                 return _fn(*a, **kw)
             self._patch(self.mods[mod], name, staged)
@@ -1193,7 +1322,92 @@ class BuildWatch:
         self._saved = []
 
 
-def phase_main(n: int, counters: dict) -> dict:
+def _summary(rec) -> dict:
+    return dict(build_s=rec.build_seconds, eval_s=rec.eval_seconds,
+                counters=rec.counters.as_dict(),
+                per_config=[dict(cfg=e.cfg, recall=e.recall, qps=e.qps,
+                                 points=[vars(p) for p in e.points])
+                            for e in rec.estimates])
+
+
+def _hop_stats(hops: list) -> dict:
+    """The per_batch grouped build's hops a batch step, and the surplus
+    share a fused build runs at ``search.HOP_CHUNK``."""
+    from repro_torch.core import search
+    k_chunk = search.HOP_CHUNK
+    hist = {}
+    for h in hops:
+        lo = h // k_chunk * k_chunk
+        hist[f"{lo}-{lo + k_chunk - 1}"] = hist.get(
+            f"{lo}-{lo + k_chunk - 1}", 0) + 1
+    return dict(
+        steps=len(hops), min=min(hops), max=max(hops),
+        mean=sum(hops) / len(hops), median=sorted(hops)[len(hops) // 2],
+        histogram=hist, hop_chunk=k_chunk,
+        surplus_share=sum(max(1, math.ceil(h / k_chunk)) * k_chunk + k_chunk
+                          - h for h in hops) / sum(hops))
+
+
+def _host_syncs(watch) -> dict:
+    """The grouped builds' host syncs: the fused build's insert steps
+    (HNSW's descent apart) against the chunks the per_batch build's hops
+    of the same steps need (``fused_insert_expected``), and its replays
+    against those steps."""
+    from repro_torch.core import search
+    k_chunk = search.HOP_CHUNK
+    hops = watch.hops
+    fused_g, per_g = watch.builds[0], watch.builds[-1]
+    return dict(
+        fused_insert=fused_g["host_syncs"] - fused_g.get("descent_syncs", 0),
+        fused_descent=fused_g.get("descent_syncs", 0),
+        per_batch_insert=per_g["host_syncs"] - per_g.get("descent_syncs", 0),
+        per_batch_descent=per_g.get("descent_syncs", 0),
+        fused_insert_expected=sum(max(1, math.ceil(h / k_chunk))
+                                  for h in hops),
+        fused_insert_bound=sum(math.ceil(h / k_chunk) + 1 for h in hops),
+        fused_replays=fused_g["replays"], per_batch_steps=len(hops))
+
+
+def _check_estimations(name: str, grouped, base, per_batch, watch,
+                       syncs: dict) -> None:
+    """The contract every estimation phase holds: finite eval points,
+    grouped == baseline == per_batch recall sweeps (one degree bucket),
+    fused counters == per_batch counters, an ESO+EPO saving, no stage
+    function called from Python after capture, and the fused grouped
+    build's replays and its insert steps' host syncs equal to the steps
+    and the chunks the per_batch build's hops need."""
+    c = grouped.counters
+    for e in grouped.estimates + base.estimates:
+        if not all(math.isfinite(p.qps) and 0 <= p.recall <= 1
+                   for p in e.points):
+            raise AssertionError(f"{name}: bad eval point for {e.cfg}")
+    for eg, eb, ep in zip(grouped.estimates, base.estimates,
+                          per_batch.estimates):
+        recalls = [p.recall for p in eg.points]
+        if recalls != [p.recall for p in eb.points]:
+            raise AssertionError(f"{name}: grouped != baseline recall for "
+                                 f"{eg.cfg}")
+        if recalls != [p.recall for p in ep.points]:
+            raise AssertionError(f"{name}: fused != per_batch recall for "
+                                 f"{eg.cfg}")
+    if grouped.counters != per_batch.counters:
+        raise AssertionError(f"{name}: fused counters {grouped.counters} != "
+                             f"per_batch {per_batch.counters}")
+    if not c.total < c.total_base:
+        raise AssertionError(f"{name}: no ESO/EPO saving: {c.as_dict()}")
+    if watch.late_calls:
+        raise AssertionError(f"{name}: stage functions called after "
+                             f"capture: {watch.late_calls}")
+    if syncs["fused_replays"] != syncs["per_batch_steps"] or \
+            syncs["fused_insert"] != syncs["fused_insert_expected"]:
+        raise AssertionError(f"{name}: fused grouped build's replays and "
+                             f"insert host syncs differ from the per_batch "
+                             f"build's steps and chunks: {syncs}")
+
+
+def phase_main(n: int, counters: dict) -> tuple[dict, tuple]:
+    """FastPGT's grouped Vamana estimation; returns the path's launches
+    and its (data, queries, ground truth) for the hnsw and nsg paths."""
     import torch
     from repro_torch.core import eval as evallib
     from repro_torch.core import search
@@ -1234,41 +1448,17 @@ def phase_main(n: int, counters: dict) -> dict:
     gt_recall = evallib.recall_at_k(gt[:sub], want)
     gt_ok = bool(gt.shape == (NQ, 10) and (gt >= 0).all() and (gt < n).all())
 
-    def summary(rec):
-        return dict(build_s=rec.build_seconds, eval_s=rec.eval_seconds,
-                    counters=rec.counters.as_dict(),
-                    per_config=[dict(cfg=e.cfg, recall=e.recall, qps=e.qps,
-                                     points=[vars(p) for p in e.points])
-                                for e in rec.estimates])
-    g, bsum, psum = summary(grouped), summary(base), summary(per_batch)
     c = grouped.counters
     # the best config's recall@10 over its ef sweep
     best = max(p.recall for e in grouped.estimates for p in e.points)
-    k_chunk = search.HOP_CHUNK
     hops = watch.hops
     n_batches = -(-n // 256)
-    fused_g, per_g = watch.builds[0], watch.builds[-1]
-    syncs_expected = sum(max(1, math.ceil(h / k_chunk)) for h in hops)
-    hist = {}
-    for h in hops:
-        lo = h // k_chunk * k_chunk
-        hist[f"{lo}-{lo + k_chunk - 1}"] = hist.get(
-            f"{lo}-{lo + k_chunk - 1}", 0) + 1
-    hop_stats = dict(
-        batches=len(hops), min=min(hops), max=max(hops),
-        mean=sum(hops) / len(hops), median=sorted(hops)[len(hops) // 2],
-        histogram=hist, hop_chunk=k_chunk,
-        surplus_share=sum(max(1, math.ceil(h / k_chunk)) * k_chunk + k_chunk
-                          - h for h in hops) / sum(hops))
+    syncs = _host_syncs(watch)
     emit("main", n=n, d=128, nq=NQ, k=10, data_s=t_data,
-         ground_truth_s=t_gt, grouped=g, baseline=bsum,
-         per_batch_grouped=psum, builds=watch.builds,
-         hops_per_batch=hop_stats,
-         host_syncs_grouped=dict(fused=fused_g["host_syncs"],
-                                 per_batch=per_g["host_syncs"],
-                                 fused_expected=syncs_expected,
-                                 fused_bound=sum(math.ceil(h / k_chunk) + 1
-                                                 for h in hops)),
+         ground_truth_s=t_gt, grouped=_summary(grouped),
+         baseline=_summary(base), per_batch_grouped=_summary(per_batch),
+         builds=watch.builds, hops_per_batch=_hop_stats(hops),
+         host_syncs_grouped=syncs,
          stage_calls_after_capture=watch.late_calls,
          eso_epo_saving=1.0 - c.total / c.total_base,
          build_speedup=base.build_seconds / grouped.build_seconds,
@@ -1279,40 +1469,106 @@ def phase_main(n: int, counters: dict) -> dict:
          reduced=f"n={n} of the paper's 1M-vector corpora (time limit)")
     if not gt_ok or gt_recall < 0.99:
         raise AssertionError(f"ground truth wrong: {gt_recall}")
-    for e in grouped.estimates + base.estimates:
-        if not all(math.isfinite(p.qps) and 0 <= p.recall <= 1
-                   for p in e.points):
-            raise AssertionError(f"bad eval point for {e.cfg}")
     if best < 0.9:
         raise AssertionError(f"best recall@10 {best} < 0.9")
-    # sharing never changes a graph: every config's sweep is the same in
-    # the grouped and the baseline estimation (one degree bucket), and the
-    # fused build's graphs are the per_batch build's
-    for eg, eb, ep in zip(grouped.estimates, base.estimates,
-                          per_batch.estimates):
-        recalls = [p.recall for p in eg.points]
-        if recalls != [p.recall for p in eb.points]:
-            raise AssertionError(f"grouped != baseline recall for {eg.cfg}")
-        if recalls != [p.recall for p in ep.points]:
-            raise AssertionError(f"fused != per_batch recall for {eg.cfg}")
-    if grouped.counters != per_batch.counters:
-        raise AssertionError(f"fused counters {grouped.counters} != "
-                             f"per_batch {per_batch.counters}")
-    if not c.total < c.total_base:
-        raise AssertionError(f"no ESO/EPO saving: {c.as_dict()}")
-    if watch.late_calls:
-        raise AssertionError(f"stage functions called after capture: "
-                             f"{watch.late_calls}")
-    if len(hops) != n_batches or fused_g["replays"] != n_batches or \
-            fused_g["host_syncs"] != syncs_expected:
-        raise AssertionError(
-            f"fused grouped build: {fused_g['replays']} replays and "
-            f"{fused_g['host_syncs']} host syncs, expected {n_batches} and "
-            f"{syncs_expected} (per_batch hops {len(hops)} batches)")
+    _check_estimations("main", grouped, base, per_batch, watch, syncs)
+    if len(hops) != n_batches:
+        raise AssertionError(f"per_batch grouped build: {len(hops)} "
+                             f"searches, expected {n_batches}")
     for name in ("gather_distance", "pairwise_distance", "prune_recurrence"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
+    return launches, (data, queries, gt)
+
+
+def knng_split(data) -> dict:
+    """NSG's initial KNNG at the path's shape, split: the pairwise
+    kernel's and the stable sort's ms on one (KNNG_BLOCK, n) block, and
+    the blocks a KNNG runs."""
+    import torch
+    from repro_torch.kernels import l2_distance as l2
+    q = data[:KNNG_BLOCK]
+    d2 = l2.pairwise_distance(q, data, kernel="l2")
+    kernel_ms, kernel_spread = time_ms(
+        lambda: l2.pairwise_distance(q, data, kernel="l2"), reps=5)
+    sort_ms, sort_spread = time_ms(
+        lambda: torch.sort(d2, dim=-1, stable=True), reps=5)
+    return dict(block=[KNNG_BLOCK, data.shape[0], data.shape[1]],
+                blocks=-(-data.shape[0] // KNNG_BLOCK),
+                kernel_ms_a_block=kernel_ms,
+                kernel_ms_spread=kernel_spread, sort_ms_a_block=sort_ms,
+                sort_ms_spread=sort_spread)
+
+
+def phase_family(family: str, cfgs: list, main_data: tuple,
+                 counters: dict) -> dict:
+    """FastPGT's estimation for HNSW or NSG on the main path's data and
+    ground truth: grouped (group_size=4) and baseline (group_size=1)
+    estimations with fused builds, counted as the path ``family``, and a
+    per_batch grouped estimation beside them.  Held to the main path's
+    contract (``_check_estimations``) and to best recall@10 >= 0.9; the
+    gather and prune kernels (and, for NSG, the pairwise kernel) must
+    have launched on the path."""
+    import torch
+    from repro_torch.core import search
+    from repro_torch.core.tuner import estimator
+    data, queries, gt = main_data
+    n = data.shape[0]
+    kw = dict(group_size=4, build_batch_size=256, ef_grid=EF_GRID)
+    watch = BuildWatch(m_grouped=len(cfgs))
+    zero_counts(counters)
+    search.HOST_SYNCS = 0
+    with watch:
+        grouped = estimator.estimate(family, data, queries, gt, cfgs,
+                                     build_impl="fused", **kw)
+        base = estimator.estimate(family, data, queries, gt, cfgs,
+                                  build_impl="fused",
+                                  **dict(kw, group_size=1))
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        per_batch = estimator.estimate(family, data, queries, gt, cfgs,
+                                       build_impl="per_batch", **kw)
+    c = grouped.counters
+    best = max(p.recall for e in grouped.estimates for p in e.points)
+    fused_g = watch.builds[0]
+    syncs = _host_syncs(watch)
+    extra = {}
+    if family == "hnsw":
+        extra["descent"] = [dict(
+            impl=b["impl"], m=b["m"], seconds=b.get("descent_s", 0.0),
+            share=b.get("descent_s", 0.0) / b["seconds"],
+            host_syncs=b.get("descent_syncs", 0),
+            hops=b.get("descent_hops", 0), searches=b.get("descents", 0))
+            for b in watch.builds]
+        extra["levels_histogram"] = fused_g["levels_histogram"]
+    else:
+        extra["knng_split"] = knng_split(data)
+        extra["knng_s"] = [b["knng_s"] for b in watch.builds]
+        extra["repair"] = [b.get("repair") for b in watch.builds]
+    emit(family, n=n, d=data.shape[1], nq=queries.shape[0], k=10,
+         configs=cfgs,
+         grouped=_summary(grouped), baseline=_summary(base),
+         per_batch_grouped=_summary(per_batch), builds=watch.builds,
+         hops_per_step=_hop_stats(watch.hops), host_syncs_grouped=syncs,
+         stage_calls_after_capture=watch.late_calls,
+         eso_epo_saving=1.0 - c.total / c.total_base,
+         build_speedup=base.build_seconds / grouped.build_seconds,
+         fused_speedup_grouped=per_batch.build_seconds
+         / grouped.build_seconds, replays=fused_g["replays"],
+         capture_s=fused_g["capture_s"], launches=launches,
+         best_recall=best, **extra,
+         reduced=f"n={n} of the paper's 1M-vector corpora (time limit)")
+    _check_estimations(family, grouped, base, per_batch, watch, syncs)
+    if best < 0.9:
+        raise AssertionError(f"{family}: best recall@10 {best} < 0.9")
+    need = ["gather_distance", "prune_recurrence"]
+    if family == "nsg":
+        need.append("pairwise_distance")
+    for name in need:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{family} path")
     return launches
 
 
@@ -1858,7 +2114,11 @@ def main() -> int:
     kernels = phase_kernels(args.n)
     by_path = {}
     phase_exact()
-    by_path["main"] = phase_main(args.n, counters)
+    by_path["main"], main_data = phase_main(args.n, counters)
+    by_path["hnsw"] = phase_family("hnsw", HNSW_CONFIGS, main_data, counters)
+    by_path["nsg"] = phase_family("nsg", NSG_CONFIGS, main_data, counters)
+    del main_data
+    build.release()                  # the captured build steps
     phase_serve_exact()
     zero_counts(counters)
     data = serve_data()

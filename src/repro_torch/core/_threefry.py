@@ -1,4 +1,5 @@
-"""Threefry-2x32 counter-based random bits and ``randint``, in NumPy.
+"""Threefry-2x32 counter-based random bits, ``randint`` and ``uniform``,
+in NumPy.
 
 Reproduces, bit for bit, what the reference's ``jax.random.PRNGKey(seed)``
 followed by ``jax.random.randint(key, shape, 0, maxval, int32)`` draws under
@@ -7,8 +8,12 @@ followed by ``jax.random.randint(key, shape, 0, maxval, int32)`` draws under
 counters 0 and 1), draws 32 random bits per element from each (the
 element's flat index as the 64-bit counter, the two output words XORed),
 and reduces them modulo the span with uint32 wrap-around arithmetic.
+``uniform`` is ``jax.random.uniform(key, shape, float32, minval,
+maxval)``: 32 bits per element from the key itself (no split), the top 23
+as a mantissa in [1, 2), minus 1, scaled to [minval, maxval).
 The port needs the same draws so a build starts from the same random
-initial graph as the reference (FastPGT's deterministic random strategy).
+initial graph, and the same HNSW levels, as the reference (FastPGT's
+deterministic random strategy).
 """
 from __future__ import annotations
 
@@ -77,3 +82,18 @@ def randint(key, shape: tuple[int, ...], minval: int, maxval: int
         off = (higher % span) * mult + (lower % span)
         off = off % span
     return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
+
+
+def uniform(key, shape: tuple[int, ...], minval: float, maxval: float
+            ) -> np.ndarray:
+    """float32 draws in [minval, maxval), as ``jax.random.uniform`` makes
+    them."""
+    bits = random_bits32(key, shape)
+    one = np.array(1.0, np.float32).view(np.uint32)
+    floats = ((bits >> np.uint32(9)) | one).view(np.float32) - np.float32(1)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    # XLA contracts ``floats * (hi - lo) + lo`` into one fused multiply-add:
+    # the float32 product is exact in float64, then rounded once
+    fma = (floats.astype(np.float64) * np.float64(hi - lo)
+           + np.float64(lo)).astype(np.float32)
+    return np.maximum(lo, fma)

@@ -140,12 +140,13 @@ def _insert_step(graph_ids, graph_dist, data, u, row_mask, queries, L, M,
             res.cache_has)
 
 
-def _nsg_tail(res, graph_ids, graph_dist, knn_ids, knn_dist, data, u,
+def nsg_tail(res, graph_ids, graph_dist, knn_ids, knn_dist, data, u,
               row_mask, M, alpha, K, *, use_epo, metric, k_in, m_max,
               k_max):
     """NSG's candidates (the search pool and the node's own KNNG row,
     sorted stably by distance, repeated ids dropped after their first) ->
-    mPrune -> commit -> counter row."""
+    mPrune -> commit -> counter row: the part of an NSG step after the
+    search, shared by the per_batch loop and the stages."""
     n = data.shape[0]
     m = graph_ids.shape[0]
     dev = data.device
@@ -184,7 +185,7 @@ def _nsg_step(search_graph_ids, graph_ids, graph_dist, knn_ids, knn_dist,
         search_graph_ids, data, queries, qids, row_mask, L, entry,
         ef_max=ef_max, max_hops=max_hops, share_cache=share_cache,
         metric=metric, visited_impl=visited_impl, expand_width=expand_width)
-    return _nsg_tail(res, graph_ids, graph_dist, knn_ids, knn_dist, data, u,
+    return nsg_tail(res, graph_ids, graph_dist, knn_ids, knn_dist, data, u,
                      row_mask, M, alpha, K, use_epo=use_epo, metric=metric,
                      k_in=k_in, m_max=m_max, k_max=k_max)
 
@@ -401,7 +402,7 @@ def nsg_insert_batch(search_graph_ids, graph_ids, graph_dist, knn_ids,
             bufs.entry, **skw)
 
     def end(bufs, st):
-        return _nsg_tail(search.search_end(st), bufs.ids, bufs.dist,
+        return nsg_tail(search.search_end(st), bufs.ids, bufs.dist,
                          bufs.knn_ids, bufs.knn_dist, bufs.data, bufs.u,
                          bufs.row_mask, bufs.M, bufs.alpha, bufs.K,
                          metric=metric, **tkw)

@@ -2,8 +2,10 @@
 
 A ``repro`` ``BuildResult`` exported with ``np.asarray`` on its arrays
 (``g.ids``, ``g.dist``) plus its plain fields becomes the port's
-``BuildResult``, and a ``repro`` ``RetrievalIndex`` the port's, so a graph
-or an index built by either package can be searched by the other.  A
+``BuildResult`` (an NSG one the port's ``NSGBuildResult``, an HNSW one
+with its layers, levels, entry and top the port's ``HNSWBuildResult``),
+and a ``repro`` ``RetrievalIndex`` the port's, so a graph or an index
+built by either package can be searched by the other.  A
 ``repro`` LM parameter tree becomes the port's ``models.model.LM``.
 Nothing here imports the reference.
 """
@@ -17,6 +19,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.counters import BuildCounters
 from repro_torch.core.graph import MultiGraph
+from repro_torch.core.hnsw import HNSWBuildResult, HNSWGraphs
+from repro_torch.core.nsg import NSGBuildResult
 from repro_torch.core.vamana import BuildResult, VamanaParams
 from repro_torch.models import model as model_lib
 from repro_torch.serve.retrieval import RetrievalIndex
@@ -36,20 +40,59 @@ def graph_from_numpy(ids: np.ndarray, dist: np.ndarray,
         dist=torch.as_tensor(dist.astype(np.float32), device=dev))
 
 
+def _counters(counters: dict) -> BuildCounters:
+    """``BuildCounters.as_dict()`` -> BuildCounters (derived totals
+    ignored)."""
+    return BuildCounters(**{f: int(counters.get(f, 0)) for f in
+                            ("search_base", "search", "prune_base", "prune",
+                             "init_base", "init", "connect")})
+
+
 def build_result_from_numpy(ids, dist, entry: int, counters: dict, params,
                             metric: str = "l2",
                             device: "str | torch.device" = "cuda"
                             ) -> BuildResult:
-    """A reference build's arrays and fields -> the port's BuildResult.
+    """A reference Vamana build's arrays and fields -> the port's
+    BuildResult.
 
-    ``counters`` is ``BuildCounters.as_dict()`` (derived totals ignored);
-    ``params`` the build's parameter list (any objects with L, M, alpha)."""
-    fields = {f: int(counters.get(f, 0)) for f in
-              ("search_base", "search", "prune_base", "prune", "init_base",
-               "init", "connect")}
+    ``counters`` is ``BuildCounters.as_dict()``; ``params`` the build's
+    parameter list."""
     return BuildResult(g=graph_from_numpy(ids, dist, device),
-                       entry=int(entry), counters=BuildCounters(**fields),
+                       entry=int(entry), counters=_counters(counters),
                        params=list(params), metric=metric)
+
+
+def nsg_result_from_numpy(ids, dist, entry: int, counters: dict, params,
+                          metric: str = "l2",
+                          device: "str | torch.device" = "cuda"
+                          ) -> NSGBuildResult:
+    """A reference NSG build's arrays and fields -> the port's
+    NSGBuildResult (the same fields as a Vamana build's)."""
+    res = build_result_from_numpy(ids, dist, entry, counters, params,
+                                  metric, device)
+    return NSGBuildResult(g=res.g, entry=res.entry, counters=res.counters,
+                          params=res.params, metric=res.metric)
+
+
+def hnsw_result_from_numpy(layer_ids, layer_dist, levels, entry: int,
+                           top: int, counters: dict, params,
+                           metric: str = "l2",
+                           device: "str | torch.device" = "cuda"
+                           ) -> HNSWBuildResult:
+    """A reference HNSW build's layers int32 / float32[n_layers, m, n,
+    M_max], levels, entry and top layer -> the port's HNSWBuildResult."""
+    dev = resolve_device(device)
+    layer_ids = np.asarray(layer_ids)
+    layer_dist = np.asarray(layer_dist)
+    if layer_ids.ndim != 4 or layer_ids.shape != layer_dist.shape:
+        raise ValueError(f"expected matching (n_layers, m, n, M_max) arrays, "
+                         f"got {layer_ids.shape} and {layer_dist.shape}")
+    g = HNSWGraphs(
+        layer_ids=as_tensor(layer_ids, dev, torch.int32),
+        layer_dist=as_tensor(layer_dist, dev, torch.float32),
+        levels=np.asarray(levels, np.int32), entry=int(entry), top=int(top))
+    return HNSWBuildResult(g=g, counters=_counters(counters),
+                           params=list(params), metric=metric)
 
 
 def retrieval_index_from_numpy(graph_ids, keys, values, search_keys,

@@ -1,6 +1,6 @@
 """Parameter estimation -- the cost FastPGT attacks (§IV-C..F).
 
-Port of ``repro/core/tuner/estimator.py`` (Vamana).  ``estimate`` builds
+Port of ``repro/core/tuner/estimator.py``.  ``estimate`` builds
 the PGs for a batch of recommended configurations and measures each
 graph's (QPS, Recall@k) frontier.  ``group_size`` = 1 is the baseline
 estimation (each PG built alone); > 1 is FastPGT's simultaneous multi-PG
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch import as_tensor, resolve_device
 from repro_torch.core import eval as evallib
+from repro_torch.core import hnsw as hnswlib
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.counters import BuildCounters
 from repro_torch.core.tuner import params as pspace
@@ -64,6 +65,25 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _eval_one(pg, build_res, gi, data, queries, gt, k, ef_grid, timing_reps,
+              visited_impl="dense", expand_width=1):
+    """One graph's (ef, recall, QPS) sweep, searched under the metric the
+    graph records: layered for HNSW, from the build's entry otherwise."""
+    metric = build_res.metric
+    if pg == "hnsw":
+        def fn(q, ef):
+            return hnswlib.hnsw_search(build_res.g, gi, data, q, k, ef,
+                                       metric=metric,
+                                       visited_impl=visited_impl,
+                                       expand_width=expand_width)
+    else:
+        fn = evallib.flat_graph_search_fn(build_res.g, gi, data,
+                                          build_res.entry, k, metric,
+                                          visited_impl, expand_width)
+    return evallib.evaluate_search_fn(fn, queries, gt, k, ef_grid,
+                                      timing_reps=timing_reps)
+
+
 def estimate(pg: str, data, queries, gt, cfgs: list[dict[str, Any]], *,
              k: int = 10,
              ef_grid: list[int] | None = None,
@@ -83,8 +103,6 @@ def estimate(pg: str, data, queries, gt, cfgs: list[dict[str, Any]], *,
     ``gt`` must be ground truth under the same metric
     (``eval.ground_truth(..., metric=metric)``)."""
     ef_grid = resolve_ef_grid(k, ef_grid)
-    if pg in ("hnsw", "nsg"):
-        raise NotImplementedError(pspace._PENDING.format(pg))
     dev = resolve_device(device)
     met = metric_lib.resolve(metric)
     data = met.prepare(as_tensor(data, dev, torch.float32)).contiguous()
@@ -114,11 +132,8 @@ def estimate(pg: str, data, queries, gt, cfgs: list[dict[str, Any]], *,
         ctr = ctr.add(res.counters)
         t0 = time.perf_counter()
         for gi, cfg in enumerate(group):
-            fn = evallib.flat_graph_search_fn(
-                res.g, gi, data, res.entry, k, res.metric, visited_impl,
-                expand_width)
-            points = evallib.evaluate_search_fn(fn, queries, gt, k, ef_grid,
-                                                timing_reps=timing_reps)
+            points = _eval_one(pg, res, gi, data, queries, gt, k, ef_grid,
+                               timing_reps, visited_impl, expand_width)
             qps, recall = evallib.frontier_objectives(points)
             n_dist_eval += sum(p.n_dist for p in points)
             estimates.append(Estimate(cfg=cfg, qps=qps, recall=recall,

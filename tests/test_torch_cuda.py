@@ -392,6 +392,73 @@ def test_card_insert_batch_replays_equal_eager_step(card):
         gids, gdist = want[0], want[1]
 
 
+def test_card_fused_hnsw_and_nsg_equal_cpu(card):
+    """The fused HNSW and NSG builds on the card (layer steps and NSG
+    steps captured and replayed, the descent eager, the KNNG and the
+    repair through the pairwise kernel) == the fused builds on the CPU,
+    and == per_batch on the card, at n=600."""
+    from repro_torch.core import hnsw, nsg
+    from repro_torch.kernels import l2_distance as l2
+    data = _data((600, 16), True, 11, torch.device("cpu"))
+    hp = [hnsw.HNSWParams(32, 12), hnsw.HNSWParams(24, 16)]
+    kw = dict(seed=2, batch_size=128)
+    h = {(dev, impl): hnsw.build_multi_hnsw(data, hp, build_impl=impl,
+                                            device=dev, **kw)
+         for dev, impl in (("cuda", "fused"), ("cuda", "per_batch"),
+                           ("cpu", "fused"))}
+    want = h["cpu", "fused"]
+    assert want.g.top >= 1
+    for key in (("cuda", "fused"), ("cuda", "per_batch")):
+        got = h[key]
+        assert torch.equal(got.g.layer_ids.cpu(), want.g.layer_ids), key
+        assert torch.equal(got.g.layer_dist.cpu(), want.g.layer_dist), key
+        assert np.array_equal(got.g.levels, want.g.levels)
+        assert (got.g.entry, got.g.top) == (want.g.entry, want.g.top)
+        assert got.counters == want.counters
+    npar = [nsg.NSGParams(12, 32, 12), nsg.NSGParams(16, 24, 16)]
+    before = l2.LAUNCHES
+    n = {(dev, impl): nsg.build_multi_nsg(data, npar, build_impl=impl,
+                                          device=dev, **kw)
+         for dev, impl in (("cuda", "fused"), ("cuda", "per_batch"),
+                           ("cpu", "fused"))}
+    assert l2.LAUNCHES > before            # the KNNG on the card
+    want = n["cpu", "fused"]
+    for key in (("cuda", "fused"), ("cuda", "per_batch")):
+        got = n[key]
+        assert torch.equal(got.g.ids.cpu(), want.g.ids), key
+        assert torch.equal(got.g.dist.cpu(), want.g.dist), key
+        assert got.entry == want.entry and got.counters == want.counters
+
+
+def test_card_repair_equals_cpu_with_duplicate_parents(card):
+    """Four unreachable nodes whose nearest reachable node is the same
+    parent, so all four pick its one empty slot: on the card as on the
+    CPU the last write wins (the ids and the dists scatters agree)."""
+    from repro_torch.core import nsg
+    from repro_torch.core.graph import MultiGraph
+    from repro_torch.kernels import l2_distance as l2
+    x = torch.tensor([0, 1, 2, 3, 10, 11, 30, 31], dtype=torch.float32)
+    data = torch.stack([x, torch.zeros_like(x)], 1)
+    ids = torch.full((2, 8, 4), -1, dtype=torch.int32)
+    ids[:, 0, 0], ids[:, 1, 0], ids[:, 2, 0] = 1, 2, 3
+    ids[:, 3, :3] = torch.tensor([0, 1, 2], dtype=torch.int32)
+    ids[:, 4, 0], ids[:, 5, 0], ids[:, 6, 0], ids[:, 7, 0] = 5, 4, 7, 6
+    d = ((data[ids.clamp_min(0).long()] - data[:, None]) ** 2).sum(-1)
+    dist = torch.where(ids >= 0, d, float("inf"))
+    for metric in ("l2", "ip"):
+        cpu = nsg._repair_connectivity(MultiGraph(ids, dist), data, 0,
+                                       metric)
+        before = l2.LAUNCHES
+        gpu = nsg._repair_connectivity(
+            MultiGraph(ids.to(card), dist.to(card)), data.to(card), 0,
+            metric)
+        assert l2.LAUNCHES == before + 2       # one pairwise a graph
+        assert torch.equal(gpu[0].ids.cpu(), cpu[0].ids)
+        assert torch.equal(gpu[0].dist.cpu(), cpu[0].dist)
+        assert gpu[1:] == cpu[1:] == (8, 8 * 8)
+        assert (cpu[0].ids[:, 3, 3] == 7).all()
+
+
 # (dtype, rtol, atol): the reference's 5e-4 in fp32 (tests/test_kernels.py);
 # one bf16 rounding of the output in bf16
 FA_DTYPES = {"float32": (torch.float32, 5e-4, 5e-4),
