@@ -70,18 +70,38 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
 5b. hnsw, nsg -- the same estimation for the paper's other two families on
                  the main path's data and ground truth: HNSW (efc, M) and
                  NSG (K, L, M), 4 configs each in the main path's degree
-                 bucket, grouped and baseline fused, a per_batch grouped
-                 estimation beside them.  Asserted as for main: identical
-                 recall sweeps grouped / baseline / per_batch, fused ==
-                 per_batch counters, an ESO+EPO saving, best recall@10 >=
-                 0.9, no stage function called from Python after capture
-                 (HNSW's eager ef=1 descent told apart), the insert
-                 steps' host syncs equal to the chunks their hops need,
-                 gather, prune and (NSG) pairwise launched.  Printed:
+                 bucket, grouped and baseline fused (their per_batch
+                 builds are held equal to the fused ones in exact, at
+                 n=2000, and not run here for time).  Asserted: identical
+                 recall sweeps grouped / baseline, an ESO+EPO saving, best
+                 recall@10 >= 0.9, no stage function called from Python
+                 after capture (HNSW's eager ef=1 descent told apart), one
+                 replayed step count for every build, gather, prune and
+                 (NSG) pairwise launched.  Printed:
                  HNSW's level histogram and the descent's seconds, syncs
                  and share of each build; NSG's KNNG seconds, split on one
                  block into the pairwise kernel and the stable sort, and
                  the repair's fixes, seconds and ``connect`` count.
+5c. tune      -- the paper's tuning loop (``fastpgt.tune``) on the main
+                 path's data and ground truth: mode fastpgt (mEHVI
+                 batches of 10, grouped fused builds with ESO+EPO) then
+                 mode vdtuner (EHVI one config a round, single fused
+                 builds), Vamana, budget 20 (the paper's 100, cut for
+                 time), mc_samples 48, seed 0.  Printed per mode:
+                 ``TuneResult.summary()`` (t_recommend, t_estimate,
+                 t_total, build #dist), ``best_qps_at(0.9)``, the Pareto
+                 front, the configurations and objectives, the steps
+                 captured and their seconds (and share of t_estimate),
+                 replays and host syncs, the recommendation split into
+                 the GP fits, the posterior draws on the card and the
+                 hypervolume sweeps on the host; then FastPGT over
+                 VDTuner in wall time and build #dist.  Asserted: 20
+                 configurations each, the same first 10, 10 distinct
+                 configurations in the mEHVI batch, FastPGT's build #dist
+                 below VDTuner's, best recall@10 >= 0.9 in each run, the
+                 gather, pairwise and prune kernels launched on both
+                 paths (``tune_fastpgt``, ``tune_vdtuner``), no stage
+                 function called from Python after capture.
 6. serve_exact -- the serving path on a scale-1 integer corpus (n=2000,
                  d=128): index built (fused) on the card and on the CPU,
                  then
@@ -124,8 +144,9 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  tokens each; tokens/s and ms per decode step.
 
 Launch counters are zeroed just before each path (main, hnsw, nsg, the
-serving ground truth ``serve_gt``, serve, and the LM phases) and read just
-after; every kernel of that path must have launched.
+two tune runs, the serving ground truth ``serve_gt``, serve, and the LM
+phases) and read just after; every kernel of that path must have
+launched.
 
 ``--profile N`` runs only device, build and a profile of one fused
 grouped build of N points (after a first build that captures its step):
@@ -182,6 +203,13 @@ HNSW_CONFIGS = [dict(efc=64, M=28), dict(efc=96, M=32), dict(efc=128, M=32),
                 dict(efc=128, M=28)]
 NSG_CONFIGS = [dict(K=24, L=64, M=28), dict(K=32, L=96, M=32),
                dict(K=32, L=128, M=32), dict(K=28, L=128, M=30)]
+# The tune path: FastPGT's tuning loop against VDTuner's on the main path's
+# data and ground truth, Vamana in tune's own space (scale 0.25: L in
+# [16, 128], M in [4, 16], alpha in [1, 2]), the paper's mEHVI batch 10;
+# its budget cut from the paper's 100 to 20 (time): the initial design of
+# 10 (one NumPy draw, shared by both modes) and one mEHVI batch of 10
+TUNE = dict(budget=20, batch=10, k=10, seed=0, scale=0.25, mc_samples=48,
+            build_impl="fused", build_batch_size=256, ef_grid=EF_GRID)
 KNNG_BLOCK = 1024              # knng.exact_knn's block of query rows
 EXACT_N = 2000                 # integer corpus of the exact phase
 # The serving cell: one attention head of a 128K-token context at head
@@ -462,12 +490,18 @@ def _gather_row(gd, gen, n_corpus: int) -> dict:
     # fp32 search's W=4 hop and the re-rank at ef=128 (64, 128), the
     # re-rank at ef 32 and 64, the entry distance (64, 1), the serving
     # build's entry distances (256, 1) and its edge lengths (N_CTX, 32);
+    # the tune path's grouped hops at m = 10 (k = 10 * 16, and 10 * 8 when
+    # every M of a batch is <= 8) and entry distances (k = 10), its single
+    # builds' hops, evaluation hops and edge lengths at M_max 16 and 8;
     # and a ragged shape off the float4 path
     shapes = [(256, 128, 128), (256, 32, 128), (256, 4, 128), (NQ, 32, 128),
               (n_corpus, 32, 128), (256, 24, 128), (NQ, 1, 128),
               (BLOCK, 128, 128), (BLOCK, 64, 128),
               (BLOCK, 32, 128), (BLOCK, 1, 128), (256, 1, 128),
-              (N_CTX, 32, 128), (9, 21, 33)]
+              (N_CTX, 32, 128), (256, 160, 128), (256, 80, 128),
+              (256, 10, 128), (256, 16, 128), (256, 8, 128), (NQ, 16, 128),
+              (NQ, 8, 128), (n_corpus, 16, 128), (n_corpus, 8, 128),
+              (9, 21, 33)]
     for (b, k, d) in dict.fromkeys(shapes):
         n = max(n_corpus, N_CTX) if d == 128 else 500
         for integer in (False, True):
@@ -986,15 +1020,19 @@ def _prune_row(prk, gen) -> dict:
     """The prune recurrence kernel against its plain loop, bit for bit, at
     the forward prune's (256, 128), NSG's forward prunes over pool + KNNG
     row (256, 128 + 32) and (256, 64 + 24), and the reverse re-prune's
-    (8192, 48) with M = 32, on geometric and random inputs, with m_limit
-    reached and never reached; timed at both main path shapes on
+    (8192, 48) with M = 32; the tune path's forward prunes over every pool
+    bucket (256, 16 .. 112) and its reverse re-prunes at M_max 16 and 8,
+    (4096, 32) and (2048, 24); on geometric and random inputs, with
+    m_limit reached and never reached; timed at both main path shapes on
     geometric inputs."""
     import torch
     checked = []
     for (b, L) in ((256, 128), (256, 160), (256, 88), (8192, 48), (1, 257),
-                   (300, 16)):
+                   (300, 16), (256, 16), (256, 32), (256, 48), (256, 64),
+                   (256, 80), (256, 96), (256, 112), (4096, 32),
+                   (2048, 24)):
         for geometric in (True, False):
-            for limit in (32, L + 1):
+            for limit in (32 if L > 32 else L // 2, L + 1):
                 valid, md, lim = _prune_inputs(gen, b, L, limit, geometric)
                 got = prk.prune_recurrence(valid, md, lim)
                 want = prk.prune_recurrence_plain(valid, md, lim)
@@ -1368,36 +1406,38 @@ def _host_syncs(watch) -> dict:
         fused_replays=fused_g["replays"], per_batch_steps=len(hops))
 
 
-def _check_estimations(name: str, grouped, base, per_batch, watch,
-                       syncs: dict) -> None:
+def _check_estimations(name: str, grouped, base, watch) -> None:
     """The contract every estimation phase holds: finite eval points,
-    grouped == baseline == per_batch recall sweeps (one degree bucket),
-    fused counters == per_batch counters, an ESO+EPO saving, no stage
-    function called from Python after capture, and the fused grouped
-    build's replays and its insert steps' host syncs equal to the steps
-    and the chunks the per_batch build's hops need."""
+    grouped == baseline recall sweeps (one degree bucket), an ESO+EPO
+    saving, no stage function called from Python after capture."""
     c = grouped.counters
     for e in grouped.estimates + base.estimates:
         if not all(math.isfinite(p.qps) and 0 <= p.recall <= 1
                    for p in e.points):
             raise AssertionError(f"{name}: bad eval point for {e.cfg}")
-    for eg, eb, ep in zip(grouped.estimates, base.estimates,
-                          per_batch.estimates):
-        recalls = [p.recall for p in eg.points]
-        if recalls != [p.recall for p in eb.points]:
+    for eg, eb in zip(grouped.estimates, base.estimates):
+        if [p.recall for p in eg.points] != [p.recall for p in eb.points]:
             raise AssertionError(f"{name}: grouped != baseline recall for "
                                  f"{eg.cfg}")
-        if recalls != [p.recall for p in ep.points]:
-            raise AssertionError(f"{name}: fused != per_batch recall for "
-                                 f"{eg.cfg}")
-    if grouped.counters != per_batch.counters:
-        raise AssertionError(f"{name}: fused counters {grouped.counters} != "
-                             f"per_batch {per_batch.counters}")
     if not c.total < c.total_base:
         raise AssertionError(f"{name}: no ESO/EPO saving: {c.as_dict()}")
     if watch.late_calls:
         raise AssertionError(f"{name}: stage functions called after "
                              f"capture: {watch.late_calls}")
+
+
+def _check_per_batch(name: str, grouped, per_batch, syncs: dict) -> None:
+    """The main path's per_batch grouped estimation beside its fused one:
+    the same recall sweeps and counters, and the fused grouped build's
+    replays and insert host syncs equal to the steps and the chunks the
+    per_batch build's hops need."""
+    for eg, ep in zip(grouped.estimates, per_batch.estimates):
+        if [p.recall for p in eg.points] != [p.recall for p in ep.points]:
+            raise AssertionError(f"{name}: fused != per_batch recall for "
+                                 f"{eg.cfg}")
+    if grouped.counters != per_batch.counters:
+        raise AssertionError(f"{name}: fused counters {grouped.counters} != "
+                             f"per_batch {per_batch.counters}")
     if syncs["fused_replays"] != syncs["per_batch_steps"] or \
             syncs["fused_insert"] != syncs["fused_insert_expected"]:
         raise AssertionError(f"{name}: fused grouped build's replays and "
@@ -1471,7 +1511,8 @@ def phase_main(n: int, counters: dict) -> tuple[dict, tuple]:
         raise AssertionError(f"ground truth wrong: {gt_recall}")
     if best < 0.9:
         raise AssertionError(f"best recall@10 {best} < 0.9")
-    _check_estimations("main", grouped, base, per_batch, watch, syncs)
+    _check_estimations("main", grouped, base, watch)
+    _check_per_batch("main", grouped, per_batch, syncs)
     if len(hops) != n_batches:
         raise AssertionError(f"per_batch grouped build: {len(hops)} "
                              f"searches, expected {n_batches}")
@@ -1505,11 +1546,13 @@ def phase_family(family: str, cfgs: list, main_data: tuple,
                  counters: dict) -> dict:
     """FastPGT's estimation for HNSW or NSG on the main path's data and
     ground truth: grouped (group_size=4) and baseline (group_size=1)
-    estimations with fused builds, counted as the path ``family``, and a
-    per_batch grouped estimation beside them.  Held to the main path's
-    contract (``_check_estimations``) and to best recall@10 >= 0.9; the
-    gather and prune kernels (and, for NSG, the pairwise kernel) must
-    have launched on the path."""
+    estimations with fused builds, counted as the path ``family``.  Held
+    to the estimation contract (``_check_estimations``), to best
+    recall@10 >= 0.9 and to one replayed step count for the grouped and
+    every baseline build (a step a batch of a layer); the gather and prune
+    kernels (and, for NSG, the pairwise kernel) must have launched on the
+    path.  Fused == per_batch for each family is the exact phase's (n =
+    2000), not repeated here at n = 50k for time."""
     import torch
     from repro_torch.core import search
     from repro_torch.core.tuner import estimator
@@ -1527,12 +1570,12 @@ def phase_family(family: str, cfgs: list, main_data: tuple,
                                   **dict(kw, group_size=1))
         torch.cuda.synchronize()
         launches = read_counts(counters)
-        per_batch = estimator.estimate(family, data, queries, gt, cfgs,
-                                       build_impl="per_batch", **kw)
     c = grouped.counters
     best = max(p.recall for e in grouped.estimates for p in e.points)
     fused_g = watch.builds[0]
-    syncs = _host_syncs(watch)
+    syncs = dict(insert=fused_g["host_syncs"]
+                 - fused_g.get("descent_syncs", 0),
+                 descent=fused_g.get("descent_syncs", 0))
     extra = {}
     if family == "hnsw":
         extra["descent"] = [dict(
@@ -1549,17 +1592,20 @@ def phase_family(family: str, cfgs: list, main_data: tuple,
     emit(family, n=n, d=data.shape[1], nq=queries.shape[0], k=10,
          configs=cfgs,
          grouped=_summary(grouped), baseline=_summary(base),
-         per_batch_grouped=_summary(per_batch), builds=watch.builds,
-         hops_per_step=_hop_stats(watch.hops), host_syncs_grouped=syncs,
+         builds=watch.builds, host_syncs_grouped=syncs,
          stage_calls_after_capture=watch.late_calls,
          eso_epo_saving=1.0 - c.total / c.total_base,
          build_speedup=base.build_seconds / grouped.build_seconds,
-         fused_speedup_grouped=per_batch.build_seconds
-         / grouped.build_seconds, replays=fused_g["replays"],
+         replays=fused_g["replays"],
          capture_s=fused_g["capture_s"], launches=launches,
          best_recall=best, **extra,
-         reduced=f"n={n} of the paper's 1M-vector corpora (time limit)")
-    _check_estimations(family, grouped, base, per_batch, watch, syncs)
+         reduced=f"n={n} of the paper's 1M-vector corpora (time limit); "
+                 f"no per_batch estimation beside the fused ones (time)")
+    _check_estimations(family, grouped, base, watch)
+    if len({b["replays"] for b in watch.builds}) != 1:
+        raise AssertionError(f"{family}: the fused builds replayed "
+                             f"{[b['replays'] for b in watch.builds]} "
+                             f"steps")
     if best < 0.9:
         raise AssertionError(f"{family}: best recall@10 {best} < 0.9")
     need = ["gather_distance", "prune_recurrence"]
@@ -1570,6 +1616,157 @@ def phase_family(family: str, cfgs: list, main_data: tuple,
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{family} path")
     return launches
+
+
+class TuneWatch:
+    """The recommendation's parts during a tune: the GP fits (each ended in
+    a device synchronize), the (m)EHVI acquisitions, and within them the
+    hypervolume sweeps on the host (the rest of an acquisition is its
+    posterior draws on the card and their read-back); and the build steps
+    captured."""
+
+    def __init__(self):
+        from repro_torch.core import build
+        from repro_torch.core.tuner import ehvi, gp
+        self.mods = dict(build=build, ehvi=ehvi, gp=gp)
+        self.t = dict(gp_fit_s=0.0, acquisition_s=0.0, hv_sweep_s=0.0)
+        self.n = dict(gp_fits=0, acquisitions=0, captures=0)
+        self._saved = []
+
+    def _timed(self, mod, name, key, count, sync):
+        import torch
+        fn = getattr(mod, name)
+
+        def timed(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            if key:
+                self.t[key] += time.perf_counter() - t0
+            self.n[count] = self.n.get(count, 0) + 1
+            return out
+        self._saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+
+    def __enter__(self):
+        gp, ehvi, build = self.mods["gp"], self.mods["ehvi"], self.mods[
+            "build"]
+        self._timed(gp, "fit", "gp_fit_s", "gp_fits", True)
+        self._timed(ehvi, "select_batch_mehvi", "acquisition_s",
+                    "acquisitions", False)
+        self._timed(ehvi, "ehvi_scores", "acquisition_s", "acquisitions",
+                    False)
+        self._timed(ehvi, "_mean_hvi", "hv_sweep_s", "hv_sweeps", False)
+        self._timed(build._Step, "capture", None, "captures", False)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+
+def _tune_once(mode: str, main_data: tuple, counters: dict) -> tuple:
+    """One ``fastpgt.tune`` run counted as the path ``tune_<mode>``:
+    its result, launches and the watches' records."""
+    import torch
+    from repro_torch.core import build, search
+    from repro_torch.core.tuner import estimator, fastpgt
+    data, queries, _ = main_data
+    seen = []
+    estimate = estimator.estimate
+
+    def spied(*a, **kw):
+        rec = estimate(*a, **kw)
+        seen.append(rec)
+        return rec
+    watch = BuildWatch(m_grouped=TUNE["batch"])
+    tw = TuneWatch()
+    zero_counts(counters)
+    search.HOST_SYNCS = 0
+    r0, c0 = build.REPLAYS, build.CAPTURE_SECONDS
+    estimator.estimate = spied
+    try:
+        with watch, tw:
+            t0 = time.perf_counter()
+            res = fastpgt.tune("vamana", data, queries, mode=mode, **TUNE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        estimator.estimate = estimate
+    launches = read_counts(counters)
+    rec = dict(wall_s=wall, replays=build.REPLAYS - r0,
+               capture_s=build.CAPTURE_SECONDS - c0,
+               host_syncs=search.HOST_SYNCS, **tw.t, **tw.n)
+    rec["draws_s"] = rec["acquisition_s"] - rec["hv_sweep_s"]
+    rec["capture_share_of_t_estimate"] = rec["capture_s"] / res.t_estimate
+    points = [p for r in seen for e in r.estimates for p in e.points]
+    rec["best_recall"] = max(p.recall for p in points)
+    rec["best_sweep_qps_at_0.9"] = max(
+        [p.qps for p in points if p.recall >= 0.9], default=0.0)
+    rec["build_s"] = sum(r.build_seconds for r in seen)
+    rec["eval_s"] = sum(r.eval_seconds for r in seen)
+    return res, launches, rec, watch
+
+
+def phase_tune(main_data: tuple, counters: dict) -> dict:
+    """FastPGT's tuning loop (mode fastpgt) against VDTuner's (mode
+    vdtuner) on the main path's data: the paper's headline comparison at
+    budget 20.  Returns the two paths' launches."""
+    out, runs = {}, {}
+    for mode in ("fastpgt", "vdtuner"):
+        res, launches, rec, watch = _tune_once(mode, main_data, counters)
+        runs[mode] = res
+        out[f"tune_{mode}"] = launches
+        emit("tune", mode=mode, pg="vamana", n=main_data[0].shape[0],
+             nq=main_data[1].shape[0], **TUNE,
+             summary=res.summary(), best_qps_at_0_9=res.best_qps_at(0.9),
+             pareto_front=res.pareto_front().tolist(), configs=res.cfgs,
+             objectives=res.objectives, counters=res.counters.as_dict(),
+             builds=[dict(m=b["m"], seconds=b["seconds"],
+                          capture_s=b["capture_s"], replays=b["replays"],
+                          host_syncs=b["host_syncs"])
+                     for b in watch.builds],
+             stage_calls_after_capture=watch.late_calls,
+             launches=launches, **rec,
+             reduced="budget 100 -> 20 and n 1M -> 50k (time limit)")
+        if len(res.cfgs) != TUNE["budget"]:
+            raise AssertionError(f"tune {mode}: {len(res.cfgs)} configs")
+        if rec["best_recall"] < 0.9:
+            raise AssertionError(f"tune {mode}: best recall@10 "
+                                 f"{rec['best_recall']} < 0.9")
+        if watch.late_calls:
+            raise AssertionError(f"tune {mode}: stage functions called "
+                                 f"after capture: {watch.late_calls}")
+        for name in ("gather_distance", "pairwise_distance",
+                     "prune_recurrence"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"tune_{mode} path")
+    fast, vd = runs["fastpgt"], runs["vdtuner"]
+    n0 = TUNE["batch"]
+    mehvi = {tuple(sorted(c.items())) for c in fast.cfgs[n0:]}
+    emit("tune_vs", fastpgt_over_vdtuner=dict(
+        t_total=vd.t_total / fast.t_total,
+        t_estimate=vd.t_estimate / fast.t_estimate,
+        t_recommend=vd.t_recommend / max(fast.t_recommend, 1e-9),
+        n_dist_build=fast.counters.total / vd.counters.total),
+        same_initial_design=fast.cfgs[:n0] == vd.cfgs[:n0],
+        mehvi_batch_distinct=len(mehvi))
+    if fast.cfgs[:n0] != vd.cfgs[:n0]:
+        raise AssertionError("tune: the two modes' initial designs differ")
+    if len(mehvi) != TUNE["budget"] - n0:
+        raise AssertionError(f"tune: the mEHVI batch holds {len(mehvi)} "
+                             f"distinct configurations")
+    if not fast.counters.total < vd.counters.total:
+        raise AssertionError(f"tune: FastPGT's build #dist "
+                             f"{fast.counters.total} not below VDTuner's "
+                             f"{vd.counters.total}")
+    return out
+
 
 
 def _serve_int_data(n: int, nq: int, d: int = 128):
@@ -2117,6 +2314,7 @@ def main() -> int:
     by_path["main"], main_data = phase_main(args.n, counters)
     by_path["hnsw"] = phase_family("hnsw", HNSW_CONFIGS, main_data, counters)
     by_path["nsg"] = phase_family("nsg", NSG_CONFIGS, main_data, counters)
+    by_path.update(phase_tune(main_data, counters))
     del main_data
     build.release()                  # the captured build steps
     phase_serve_exact()

@@ -1,1 +1,2 @@
-"""Architecture configs of the LM substrate (copies of ``repro/configs``)."""
+"""Architecture configs of the LM substrate and the paper's tuning workload
+(copies of ``repro/configs``)."""

@@ -6,10 +6,13 @@ A ``repro`` ``BuildResult`` exported with ``np.asarray`` on its arrays
 with its layers, levels, entry and top the port's ``HNSWBuildResult``),
 and a ``repro`` ``RetrievalIndex`` the port's, so a graph or an index
 built by either package can be searched by the other.  A
-``repro`` LM parameter tree becomes the port's ``models.model.LM``.
+``repro`` LM parameter tree becomes the port's ``models.model.LM``, and a
+``repro`` GP surrogate the port's ``tuner.gp.GPState``.
 Nothing here imports the reference.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -21,6 +24,7 @@ from repro_torch.core.counters import BuildCounters
 from repro_torch.core.graph import MultiGraph
 from repro_torch.core.hnsw import HNSWBuildResult, HNSWGraphs
 from repro_torch.core.nsg import NSGBuildResult
+from repro_torch.core.tuner import gp as gplib
 from repro_torch.core.vamana import BuildResult, VamanaParams
 from repro_torch.models import model as model_lib
 from repro_torch.serve.retrieval import RetrievalIndex
@@ -169,3 +173,20 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig,
         raise ValueError(f"reference leaves without a port parameter: "
                          f"{sorted(want - done)}")
     return model
+
+
+
+def gp_state_from_numpy(fields: dict,
+                        device: "str | torch.device" = "cuda"
+                        ) -> "gplib.GPState":
+    """A reference ``GPState``'s arrays (``{name: np.asarray(value)}`` over
+    its fields, e.g. from ``vars(state)``) -> the port's GPState, float32
+    on ``device``, so the port's ``predict``, ``sample`` and EHVI
+    functions run on the reference's surrogate."""
+    dev = resolve_device(device)
+    names = [f.name for f in dataclasses.fields(gplib.GPState)]
+    missing = set(names) - set(fields)
+    if missing:
+        raise ValueError(f"GP state without {sorted(missing)}")
+    return gplib.GPState(**{f: as_tensor(np.asarray(fields[f]), dev,
+                                         torch.float32) for f in names})

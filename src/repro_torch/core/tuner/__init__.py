@@ -1,1 +1,2 @@
-"""Parameter spaces and the estimation loop (Vamana slice)."""
+"""The tuner: parameter spaces, the estimation loop, GP surrogates,
+EHVI / mEHVI and the tuning loop (``fastpgt.tune``)."""

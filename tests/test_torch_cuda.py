@@ -10,7 +10,8 @@ versions.  Flash attention: rtol/atol 5e-4 in fp32 (the reference's own)
 and one bf16 rounding in bf16 (rtol 2^-7, atol 1e-3): the kernel and the
 plain version start from the same bf16 inputs, accumulate in fp32 and
 round the output once.  The LM card against CPU: 1e-4 (full fp32, TF32
-off).
+off).  The tuner's GP fit card against CPU: 1e-3 of each field's largest
+magnitude; its (m)EHVI scores 1e-5.
 """
 import numpy as np
 import pytest
@@ -577,3 +578,53 @@ def test_card_lm_equals_cpu_lm(card):
             [engine.Request(rid=i, prompt=p, max_new=4)
              for i, p in enumerate(prompts)])]
     assert outs["cuda"] == outs["cpu"]
+
+
+def _tuner_history(seed: int):
+    """Twelve encoded configs in [0, 1]^3 and two noisy objectives (a
+    well-conditioned surrogate, as tests/test_torch_tuner.py's)."""
+    r = np.random.default_rng(seed)
+    x = r.random((12, 3))
+    y = np.stack([x[:, 0] + 0.2 * x[:, 1],
+                  1 - x[:, 0] ** 2 + 0.1 * x[:, -1]], 1)
+    return x, y + 0.1 * r.normal(size=y.shape), r.random((24, 3))
+
+
+def test_card_gp_and_mehvi_equal_cpu(card):
+    """gp.fit on the card == on the CPU within 1e-3 of each field's largest
+    magnitude; mEHVI on the CPU's surrogate carried to the card: every
+    greedy step's scores within 1e-5 of the CPU's, the same choices up to
+    the first step whose best leads its runner-up by no more than that."""
+    import dataclasses
+
+    from repro_torch.core import _threefry
+    from repro_torch.core.tuner import ehvi, gp, pareto
+    x, y, cands = _tuner_history(0)
+    cpu = [gp.fit(x, y[:, i], device="cpu") for i in range(2)]
+    gpu = [gp.fit(x, y[:, i], device=card) for i in range(2)]
+    for a, b in zip(cpu, gpu):
+        for f in ("log_ls", "log_sf", "log_sn", "alpha", "chol"):
+            want, got = getattr(a, f), getattr(b, f).cpu()
+            assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+    moved = [gp.GPState(**{f.name: getattr(g, f.name).to(card)
+                           for f in dataclasses.fields(g)}) for g in cpu]
+    front, ref = pareto.pareto_front(y), pareto.default_reference(y)
+    key = _threefry.prng_key(2)
+    chosen, clear, batch = [], 0, 4
+    for step in range(batch):
+        key, sub = _threefry.split(key)
+        rem = [i for i in range(len(cands)) if i not in chosen]
+        sets = cands[np.array([chosen + [i] for i in rem])]
+        want = ehvi._mc_joint_hvi_sets(*cpu, sets, front, ref, sub, 32)
+        got = ehvi._mc_joint_hvi_sets(*moved, sets, front, ref, sub, 32)
+        assert np.max(np.abs(got - want)) <= 1e-5
+        top = np.sort(want)
+        if clear == step and top[-1] - top[-2] > 1e-5:
+            clear += 1
+        chosen.append(rem[int(np.argmax(want))])
+    got_idx = ehvi.select_batch_mehvi(*moved, cands, front, ref, batch,
+                                      _threefry.prng_key(2), 32)
+    assert ehvi.select_batch_mehvi(*cpu, cands, front, ref, batch,
+                                   _threefry.prng_key(2), 32) == chosen
+    assert len(set(got_idx)) == batch
+    assert got_idx[:clear] == chosen[:clear]
