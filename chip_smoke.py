@@ -124,6 +124,35 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  ip top-32 and the attention gate (mean cosine >= 0.9 at
                  ef=128), which neither index meets on this geometry
                  (PERF.md, ROADMAP queue 3).
+7b. shard_exact -- sharded serving card == CPU on the serving path's
+                 scale-1 integer corpus (n=2000, d=128, ip), S=4: chunked
+                 and random placement, each with the per-shard exact KNNG
+                 and with fused per-shard Vamana (``build_index``): the
+                 ShardedGraph fields, then ``sharded_knn_search``'s pools,
+                 distances and counters under scatter-gather, routed p=2
+                 (dense and hash), shard 1 dead, sq8 and 16 tombstones,
+                 and the flat-graph search at p=S (``_fused_routed``, fp32
+                 and sq8) == scatter-gather on each device; k-means twice
+                 on the card (the same
+                 partition) and its contract (every id once, none above
+                 ceil(n/S * 1.05), none empty).  Reported: the two k-means
+                 checks the reference fails on its own, run on the port.
+7c. serve_sharded -- the cosine serving cell in 8 k-means shards (fused
+                 Vamana a shard, sq8), the same keys, queries and exact
+                 top-32 as serve: scatter-gather, routed p in {1, 2, 4},
+                 and p=2 with shard 0 dead, fp32 and sq8, at ef=128.  Printed per run: recall@32 (the unsharded
+                 index's beside it), n_computed as a share of
+                 scatter-gather's, hops, host syncs, QPS, attention
+                 cosine; once: k-means seconds, shard sizes, per-shard
+                 build seconds, steps captured and replays, the index's
+                 bytes.  Asserted: the flat-graph search at p=8
+                 (``_fused_routed``, which ``sharded_knn_search`` never
+                 runs at p=S) == scatter-gather bit for bit, routed
+                 n_computed below scatter-gather's, no pool id of
+                 the dead shard, sq8 recall >= fp32 - 0.02, scatter-gather
+                 recall >= COSINE_RECALL_FLOOR, every shard within the
+                 capacity, the gather, int8 gather and prune kernels
+                 launched.
 8. lm_exact   -- the LM substrate on gemma2_9b's smoke config (4 layers,
                  window 32) in fp32, on the card and on the CPU: forward
                  logits of a 48-token prompt card == CPU to 1e-4,
@@ -144,9 +173,9 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  tokens each; tokens/s and ms per decode step.
 
 Launch counters are zeroed just before each path (main, hnsw, nsg, the
-two tune runs, the serving ground truth ``serve_gt``, serve, and the LM
-phases) and read just after; every kernel of that path must have
-launched.
+two tune runs, the serving ground truth ``serve_gt``, serve,
+serve_sharded, and the LM phases) and read just after; every kernel of
+that path must have launched.
 
 ``--profile N`` runs only device, build and a profile of one fused
 grouped build of N points (after a first build that captures its step):
@@ -225,6 +254,12 @@ BLOCK = 64                     # retrieval_attention_batched block size
 # modes on an H100, flat in ef), so that a wrong int8 or hash search at
 # full width fails the run
 COSINE_RECALL_FLOOR = 0.65
+SHARDS = 8                     # serve_sharded: k-means shards of the cache
+SHARD_PS = [1, 2, 4]           # serve_sharded: routed shards below S
+SHARD_EF = 128
+# the largest shard k-means may leave: ceil(n/S * (1 + KMEANS_CAP_SLACK))
+SHARD_CAP = -(-N_CTX * 105 // (SHARDS * 100))
+SHARD_EXACT = dict(n=2000, nq=100, shards=4, ef=64, tombstones=16)
 # The LM cells: gemma2_9b at its full widths (d_model 3584, 16 heads of
 # 224, GQA 16:8, d_ff 14336, vocab 256000), window 4096 on the 21 local
 # layers, attention soft-cap 50, logit soft-cap 30; random weights.
@@ -493,7 +528,11 @@ def _gather_row(gd, gen, n_corpus: int) -> dict:
     # the tune path's grouped hops at m = 10 (k = 10 * 16, and 10 * 8 when
     # every M of a batch is <= 8) and entry distances (k = 10), its single
     # builds' hops, evaluation hops and edge lengths at M_max 16 and 8;
-    # and a ragged shape off the float4 path
+    # the sharded serve path's routed hops and sq8 re-ranks over b*p rows
+    # of the flat graph (p = 2, 4: 128 and 256 rows at k = 128) with their
+    # entry distances (k = 1), and a per-shard build's edge lengths at the
+    # largest shard k-means allows (SHARD_CAP, 32); and a ragged shape off
+    # the float4 path
     shapes = [(256, 128, 128), (256, 32, 128), (256, 4, 128), (NQ, 32, 128),
               (n_corpus, 32, 128), (256, 24, 128), (NQ, 1, 128),
               (BLOCK, 128, 128), (BLOCK, 64, 128),
@@ -501,9 +540,12 @@ def _gather_row(gd, gen, n_corpus: int) -> dict:
               (N_CTX, 32, 128), (256, 160, 128), (256, 80, 128),
               (256, 10, 128), (256, 16, 128), (256, 8, 128), (NQ, 16, 128),
               (NQ, 8, 128), (n_corpus, 16, 128), (n_corpus, 8, 128),
-              (9, 21, 33)]
+              (BLOCK * 2, 128, 128), (BLOCK * 4, 128, 128),
+              (BLOCK * 2, 1, 128), (BLOCK * 4, 1, 128),
+              (SHARD_CAP, 32, 128), (9, 21, 33)]
     for (b, k, d) in dict.fromkeys(shapes):
-        n = max(n_corpus, N_CTX) if d == 128 else 500
+        # the corpus as large as the sharded path's flat rows (S * n_s)
+        n = max(n_corpus, N_CTX, SHARDS * SHARD_CAP) if d == 128 else 500
         for integer in (False, True):
             u = _data(gen, (b, d), integer)
             data = _data(gen, (n, d), integer)
@@ -558,13 +600,17 @@ def _gather_sq8_row(gd, ops, ref, gen) -> dict:
     """int8 gather, slab and ids forms, at the serve path's shapes."""
     import torch
     err = 0.0
-    # the sq8 search's W=4 hop (k = W*Mx = 4*32), its entry distance, a
+    # the sq8 search's W=4 hop (k = W*Mx = 4*32) and its entry distance,
+    # the same over the sharded path's routed b*p rows (p = 2, 4), a
     # ragged shape off the 16-byte path, k off the 16 candidates a warp,
     # and d = 48 (three 16-byte chunks a row)
-    shapes = [(BLOCK, 128, 128), (BLOCK, 1, 128), (9, 21, 33),
+    shapes = [(BLOCK, 128, 128), (BLOCK, 1, 128),
+              (BLOCK * 2, 128, 128), (BLOCK * 4, 128, 128),
+              (BLOCK * 2, 1, 128), (BLOCK * 4, 1, 128), (9, 21, 33),
               (BLOCK, 37, 128), (9, 21, 48)]
     for (b, k, d) in shapes:
-        n = N_CTX if d == 128 else 500
+        # the codes as many as the sharded path's flat rows (S * n_s)
+        n = max(N_CTX, SHARDS * SHARD_CAP) if d == 128 else 500
         for integer in (False, True):
             quant = _int8_corpus(gen, n, d, integer)
             u = _int8_queries(gen, (b, d), integer)
@@ -1779,6 +1825,57 @@ def _serve_int_data(n: int, nq: int, d: int = 128):
     return keys, torch.randn((n, d), generator=gen), q
 
 
+def _identical(got, want) -> dict:
+    """Which of two SearchResults' pools, distances and counters agree
+    exactly (either may lie on the card)."""
+    import torch
+    return dict(
+        pool_ids=torch.equal(got.pool_ids.cpu(), want.pool_ids.cpu()),
+        pool_dist=torch.equal(got.pool_dist.cpu(), want.pool_dist.cpu()),
+        n_fresh=int(got.n_fresh) == int(want.n_fresh),
+        n_computed=int(got.n_computed) == int(want.n_computed),
+        hops=int(got.hops) == int(want.hops))
+
+
+def _flat_graph_at_all_shards(sg, qs, k: int, ef: int, *, metric: str,
+                              quantize: bool, block: int):
+    """The flat-graph search (``search._fused_routed``) with every shard
+    routed, block by block as ``retrieval_attention_batched`` cuts the
+    prepared queries ``qs`` (a ragged tail zero-padded and masked), hash
+    state, W=4: pools cut to ``k``, counters summed, hops the maximum.
+    ``sharded_knn_search`` sends p=S to scatter-gather, so this is the run
+    that holds the flat-graph rows against the per-shard searches; flat
+    and local ids hash to other slots, so a table that overflowed would
+    show here."""
+    import dataclasses
+    import types
+    import torch
+    from repro_torch.core import graph, search
+    dev = sg.ids.device
+    if sg.flat_ids is None:
+        sg = dataclasses.replace(sg, flat_ids=graph.flat_adjacency(sg.ids))
+    qs = torch.as_tensor(qs).to(dev, torch.float32)
+    live = torch.ones(sg.num_shards, dtype=torch.bool, device=dev)
+    rows = torch.arange(block, device=dev)
+    kw = dict(ef=ef, max_hops=search.default_max_hops(ef, 4), metric=metric,
+              visited_impl="hash", hash_slots=None, expand_width=4,
+              quantize=quantize)
+    ids, dist, n_fresh, n_comp, hops = [], [], 0, 0, 0
+    for off in range(0, qs.shape[0], block):
+        nrows = min(block, qs.shape[0] - off)
+        qb = qs.new_zeros((block, qs.shape[1]))
+        qb[:nrows] = qs[off:off + nrows]
+        pi, pd, nf, nc, h = search._fused_routed(
+            sg, qb, rows < nrows, live, sg.num_shards, **kw)
+        ids.append(pi[:nrows, :k])
+        dist.append(pd[:nrows, :k])
+        n_fresh, n_comp = n_fresh + int(nf), n_comp + int(nc)
+        hops = max(hops, int(h))
+    return types.SimpleNamespace(pool_ids=torch.cat(ids),
+                                 pool_dist=torch.cat(dist), n_fresh=n_fresh,
+                                 n_computed=n_comp, hops=hops)
+
+
 def phase_serve_exact() -> None:
     """Card == CPU on the serving path, fp32 and sq8, hash state, W=4."""
     import torch
@@ -1807,12 +1904,7 @@ def phase_serve_exact() -> None:
             visited_impl="hash", expand_width=4, quantize=mode)
             for dev in idx}
         (o_g, r_g), (o_c, r_c) = res["cuda"], res["cpu"]
-        same = dict(
-            pool_ids=torch.equal(r_g.pool_ids.cpu(), r_c.pool_ids),
-            pool_dist=torch.equal(r_g.pool_dist.cpu(), r_c.pool_dist),
-            n_fresh=int(r_g.n_fresh) == int(r_c.n_fresh),
-            n_computed=int(r_g.n_computed) == int(r_c.n_computed),
-            hops=r_g.hops == r_c.hops)
+        same = _identical(r_g, r_c)
         att_err = float((o_g.cpu() - o_c).abs().max())
         rows[mode] = dict(identical=same, attention_max_abs_err=att_err,
                           n_computed=int(r_g.n_computed), hops=r_g.hops)
@@ -1929,6 +2021,7 @@ def phase_serve(counters: dict, data: dict, metric: str) -> dict:
          exact_top_k_attention_cosine=data["exact_top_k_cosine"],
          reduced="one head of one layer; random values; synthetic "
                  "clustered keys")
+    data[f"sweep_{metric}"] = sweep
     by = {(r["ef"], r["quantize"]): r for r in sweep}
     for ef in SERVE_EFS:
         fp, q8 = by[(ef, "none")], by[(ef, "sq8")]
@@ -1948,6 +2041,348 @@ def phase_serve(counters: dict, data: dict, metric: str) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serve path")
+    return launches
+
+
+def _kmeans_contract(parts: list, n: int, shards: int) -> dict:
+    """Every id once, no shard above ceil(n/S * (1 + slack)), none
+    empty."""
+    import numpy as np
+    from repro_torch.core import graph
+    cap = int(np.ceil(n / shards * (1.0 + graph.KMEANS_CAP_SLACK)))
+    sizes = [len(p) for p in parts]
+    out = dict(sizes=sizes, cap=cap, covers=bool(np.array_equal(
+        np.sort(np.concatenate(parts)), np.arange(n))),
+        within_cap=max(sizes) <= cap, none_empty=min(sizes) >= 1)
+    if not (out["covers"] and out["within_cap"] and out["none_empty"]):
+        raise AssertionError(f"k-means contract broken: {out}")
+    return out
+
+
+def kmeans_reference_checks(device: str = "cuda") -> dict:
+    """The two k-means checks the reference fails on its own
+    (tests/test_sharded_search.py: the kmeans case of
+    test_partition_stores_centroids_for_all_assignments, and
+    test_routed_kmeans_recall_floor_10k), run on the port with the same
+    data and reported, not asserted: whether each shard's members lie
+    closer to their own Lloyd centroid than to the others' on average (120
+    isotropic points, S=3), and routed p=2 recall@10 against the
+    unsharded search at n=10k (8 unit-spread blobs, S=4, KNNG 16, ef=64),
+    whose floor is unsharded - 0.01."""
+    import numpy as np
+    from repro_torch.core import eval as evallib
+    from repro_torch.core import graph, knng, search
+    r = np.random.default_rng(6)
+    data = r.normal(size=(120, 16)).astype(np.float32)
+    sg = graph.partition(data, 3, assignment="kmeans", degree=8,
+                         device=device)
+    cents = sg.centroids.cpu().numpy()
+    d = ((data[:, None, :] - cents[None]) ** 2).sum(-1)
+    own_closer = []
+    for s in range(3):
+        part = sg.global_ids[s][:int(sg.counts[s])].cpu().numpy()
+        others = [t for t in range(3) if t != s]
+        own_closer.append(bool(d[part, s].mean()
+                               < d[part][:, others].mean()))
+    n = 10_000
+    r = np.random.default_rng(29)
+    centers = r.normal(size=(8, 16)).astype(np.float32)
+    data = (centers[r.integers(0, 8, n)]
+            + r.normal(size=(n, 16))).astype(np.float32)
+    queries = (data[r.integers(0, n, 32)]
+               + 0.1 * r.normal(size=(32, 16))).astype(np.float32)
+    gt = evallib.ground_truth(data, queries, 10, device=device)
+    adj, _ = knng.build_knng(data, 16, device=device)
+    base = search.knn_search(adj, data, queries, 10, 64, 0, device=device)
+    sg = graph.partition(data, 4, assignment="kmeans", degree=16,
+                         device=device)
+    routed = search.sharded_knn_search(sg, queries, 10, 64, routed_shards=2)
+    rec_base = evallib.recall_at_k(base.pool_ids, gt)
+    rec = evallib.recall_at_k(routed.pool_ids, gt)
+    return dict(centroid_check_120=dict(own_closer_by_shard=own_closer,
+                                        holds=all(own_closer)),
+                routed_recall_floor_10k=dict(
+                    unsharded=rec_base, routed_p2=rec,
+                    floor=rec_base - 0.01, holds=rec >= rec_base - 0.01,
+                    shard_sizes=sg.counts.tolist()))
+
+
+def phase_shard_exact() -> None:
+    """Sharded serving card == CPU on the scale-1 integer serving corpus
+    (n=2000, d=128, ip), S=4: chunked and random placement, each with the
+    per-shard exact KNNG and with fused per-shard Vamana (build_index):
+    the ShardedGraph fields, then ``sharded_knn_search``'s pools,
+    distances and counters under scatter-gather, routed p=2 (dense and
+    hash), shard 1 dead, sq8 and 16 tombstones, and the flat-graph search
+    at p=S (fp32 and sq8) == scatter-gather on each device; k-means on the card
+    twice (the same partition) and its contract; and, reported, the two
+    k-means checks the reference fails (``kmeans_reference_checks``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import graph, search, vamana
+    from repro_torch.serve import retrieval
+    cfg = SHARD_EXACT
+    n, S = cfg["n"], cfg["shards"]
+    keys, values, q = _serve_int_data(n, cfg["nq"])
+    p = vamana.VamanaParams(**SERVE_PARAMS)
+    dead = np.ones(S, bool)
+    dead[1] = False
+    tomb = torch.arange(0, n, n // cfg["tombstones"],
+                        dtype=torch.int32)[:cfg["tombstones"]]
+    cases = dict(scatter_gather={}, routed_2_dense=dict(
+        routed_shards=2, visited_impl="dense"), routed_2_hash=dict(
+        routed_shards=2), shard_1_dead=dict(shard_mask=dead), sq8=dict(quantize="sq8"),
+        tombstones=dict(tombstone_ids=tomb))
+    rows, t0 = {}, time.perf_counter()
+    for assign in ("chunked", "random"):
+        for source in ("knng", "vamana"):
+            sg, build_s = {}, {}
+            for dev in ("cuda", "cpu"):
+                t1 = time.perf_counter()
+                if source == "knng":
+                    sg[dev] = graph.partition(
+                        keys, S, assignment=assign, degree=32, metric="ip",
+                        quantize="sq8", device=dev)
+                else:
+                    sg[dev] = retrieval.build_index(
+                        keys, values, p, metric="ip", num_shards=S,
+                        assign=assign, quantize="sq8", build_impl="fused",
+                        device=dev).shards
+                build_s[dev] = time.perf_counter() - t1
+            for f in dataclasses.fields(sg["cpu"]):
+                if not torch.equal(getattr(sg["cuda"], f.name).cpu(),
+                                   getattr(sg["cpu"], f.name)):
+                    raise AssertionError(f"shard_exact {assign}/{source}: "
+                                         f"card {f.name} != CPU")
+            same, stats, out = {}, {}, {}
+            for name, kw in cases.items():
+                kw = {"visited_impl": "hash", "expand_width": 4, **kw}
+                res = out[name] = {dev: search.sharded_knn_search(
+                    sg[dev], q, TOP_K, cfg["ef"], metric="ip", **kw)
+                    for dev in sg}
+                same[name] = _identical(res["cuda"], res["cpu"])
+                stats[name] = dict(n_computed=int(res["cuda"].n_computed),
+                                   hops=int(res["cuda"].hops))
+                if not all(same[name].values()):
+                    raise AssertionError(f"shard_exact {assign}/{source} "
+                                         f"{name}: card != CPU "
+                                         f"{same[name]}")
+            for name, base in (("flat_S", "scatter_gather"),
+                               ("flat_S_sq8", "sq8")):
+                flat = {dev: _flat_graph_at_all_shards(
+                    sg[dev], q, TOP_K, cfg["ef"], metric="ip",
+                    quantize=base == "sq8", block=cfg["nq"]) for dev in sg}
+                checks = dict(card_cpu=_identical(flat["cuda"], flat["cpu"]),
+                              **{f"{dev}_scatter_gather": _identical(
+                                  flat[dev], out[base][dev]) for dev in sg})
+                if not all(all(c.values()) for c in checks.values()):
+                    raise AssertionError(f"shard_exact {assign}/{source} "
+                                         f"{name}: {checks}")
+                stats[name] = dict(n_computed=flat["cuda"].n_computed,
+                                   hops=flat["cuda"].hops)
+            rows[f"{assign}/{source}"] = dict(
+                build_s=build_s, counts=sg["cuda"].counts.tolist(),
+                runs=stats)
+    x = torch.from_numpy(keys.numpy()).cuda()
+    runs = [graph._kmeans_parts(n, S, x, "ip", 0) for _ in range(2)]
+    if not torch.equal(runs[0][1], runs[1][1]) or not all(
+            np.array_equal(a, b) for a, b in zip(runs[0][0], runs[1][0])):
+        raise AssertionError("k-means: two card runs differ")
+    emit("shard_exact", n=n, d=128, nq=cfg["nq"], shards=S, ef=cfg["ef"],
+         top_k=TOP_K, metric="ip", params=SERVE_PARAMS,
+         compared=list(cases) + ["flat_S", "flat_S_sq8"], identical=True,
+         cases=rows,
+         kmeans=dict(two_card_runs_equal=True,
+                     **_kmeans_contract(runs[0][0], n, S)),
+         kmeans_reference_checks=kmeans_reference_checks(),
+         seconds=time.perf_counter() - t0)
+
+
+class ShardBuildWatch:
+    """serve_sharded's build split: k-means seconds (``graph.
+    _kmeans_parts``), each shard's Vamana build seconds
+    (``vamana.build_vamana``, ended in a device synchronize), and the
+    build steps captured (``build._Step.capture``)."""
+
+    def __init__(self):
+        self.kmeans_s, self.shard_build_s, self.captures = 0.0, [], 0
+        self._saved = []
+
+    def _wrap(self, mod, name, done):
+        import torch
+        fn = getattr(mod, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            done(time.perf_counter() - t0)
+            return out
+        self._saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+
+    def __enter__(self):
+        from repro_torch.core import build, graph, vamana
+        self._wrap(graph, "_kmeans_parts",
+                   lambda s: setattr(self, "kmeans_s", self.kmeans_s + s))
+        self._wrap(vamana, "build_vamana", self.shard_build_s.append)
+        fn = build._Step.capture
+
+        def capture(step, *a, **kw):
+            self.captures += 1
+            return fn(step, *a, **kw)
+        self._saved.append((build._Step, "capture", fn))
+        build._Step.capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+
+def phase_serve_sharded(counters: dict, data: dict) -> dict:
+    """The serving cell sharded: the 131072 x 128 cosine key cache in
+    SHARDS k-means shards, fused Vamana (SERVE_PARAMS) per shard, sq8;
+    1000 decode queries at top_k 32, hash state, W=4, block 64,
+    ef=SHARD_EF, under scatter-gather, routed p in SHARD_PS, and p=2 with
+    shard 0 dead, fp32 and sq8.  Asserts the flat-graph search at p=S
+    (``_fused_routed``, outside the counted runs) == scatter-gather bit
+    for bit, routed n_computed below scatter-gather's, no pool id of a
+    dead shard, sq8 recall >= fp32 - 0.02, scatter-gather recall >=
+    COSINE_RECALL_FLOOR, every shard within the k-means capacity, and the
+    fp32 gather, int8 gather and prune kernels launched."""
+    import numpy as np
+    import torch
+    from repro_torch.core import eval as evallib
+    from repro_torch.core import build, graph, search, vamana
+    from repro_torch.core import metric as metric_lib
+    from repro_torch.serve import retrieval
+    queries = data["queries"]
+    zero_counts(counters)
+    search.HOST_SYNCS = 0
+    replays = build.REPLAYS
+    t0 = time.perf_counter()
+    with ShardBuildWatch() as watch:
+        idx = retrieval.build_index(
+            data["keys"], data["values"], vamana.VamanaParams(**SERVE_PARAMS),
+            metric="cosine", num_shards=SHARDS, assign="kmeans",
+            quantize="sq8", build_impl="fused")
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sg = idx.shards
+    counts = sg.counts.tolist()
+    gids = sg.global_ids.cpu().numpy()
+    parts = [gids[s][:counts[s]] for s in range(SHARDS)]
+    contract = _kmeans_contract(parts, N_CTX, SHARDS)
+    build_steps = dict(captures=watch.captures,
+                       replays=build.REPLAYS - replays)
+    syncs_build = search.HOST_SYNCS
+    kw = dict(top_k=TOP_K, ef=SHARD_EF, block_size=BLOCK,
+              visited_impl="hash", expand_width=4)
+    retrieval.retrieval_attention_batched(idx, queries[:BLOCK], **kw)
+    dead = np.ones(SHARDS, bool)
+    dead[0] = False
+    runs = ([("scatter_gather", None, None)]
+            + [(f"routed_{p}", p, None) for p in SHARD_PS]
+            + [("routed_2_shard_0_dead", 2, dead)])
+    rows, results = [], {}
+    for mode in ("none", "sq8"):
+        for name, p, mask in runs:
+            syncs = search.HOST_SYNCS
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out, res = retrieval.retrieval_attention_batched(
+                idx, queries, routed_shards=p, shard_mask=mask,
+                quantize=mode, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            cos = torch.nn.functional.cosine_similarity(out, data["exact"],
+                                                        dim=-1)
+            results[(name, mode)] = res
+            rows.append(dict(
+                run=name, routed_shards=p, quantize=mode,
+                dead_shards=None if mask is None else
+                np.flatnonzero(~mask).tolist(),
+                recall=evallib.recall_at_k(res.pool_ids,
+                                           data["gt"]["cosine"]),
+                n_computed=int(res.n_computed), n_fresh=int(res.n_fresh),
+                hops=int(res.hops), host_syncs=search.HOST_SYNCS - syncs,
+                qps=NQ / dt, seconds=dt,
+                attention_cosine_mean=float(cos.mean()),
+                finite=bool(torch.isfinite(out).all()),
+                shape_ok=tuple(out.shape) == (NQ, 128)
+                and tuple(res.pool_ids.shape) == (NQ, TOP_K)))
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    qs = metric_lib.resolve(idx.metric).prepare(queries)
+    flat_s = {}
+    for mode in ("none", "sq8"):
+        t1 = time.perf_counter()
+        flat = _flat_graph_at_all_shards(
+            sg, qs, TOP_K, SHARD_EF, metric=idx.kernel,
+            quantize=mode == "sq8", block=BLOCK)
+        flat_s[mode] = dict(
+            seconds=time.perf_counter() - t1, n_computed=flat.n_computed,
+            hops=flat.hops, identical=_identical(
+                flat, results[("scatter_gather", mode)]))
+    by = {(r["run"], r["quantize"]): r for r in rows}
+    for r in rows:
+        sg_row = by[("scatter_gather", r["quantize"])]
+        r["n_computed_share"] = r["n_computed"] / sg_row["n_computed"]
+    unsharded = {r["quantize"]: r["recall"]
+                 for r in data.get("sweep_cosine", [])
+                 if r["ef"] == SHARD_EF}
+    emit("serve_sharded", metric="cosine", n_ctx=N_CTX, dh=128, nq=NQ,
+         shards=SHARDS, assign="kmeans", top_k=TOP_K, ef=SHARD_EF,
+         block_size=BLOCK, visited_impl="hash", expand_width=4,
+         params=SERVE_PARAMS, build_impl="fused", build_s=build_s,
+         kmeans_s=watch.kmeans_s, shard_build_s=watch.shard_build_s,
+         shard_sizes=counts, kmeans_contract=contract,
+         build_steps=build_steps, host_syncs_build=syncs_build,
+         index_bytes=dict(shards=graph.pytree_bytes(sg),
+                          fp32_rows=sg.data.numel() * 4,
+                          sq8=graph.pytree_bytes(
+                              [sg.qcodes, sg.qscale, sg.qnorms]),
+                          flat_ids=sg.flat_ids.numel() * 4),
+         unsharded_recall_at_ef=unsharded, runs=rows,
+         flat_graph_at_all_shards=flat_s, launches=launches,
+         reduced="one head of one layer; random values; synthetic "
+                 "clustered keys")
+    for mode in ("none", "sq8"):
+        if not all(flat_s[mode]["identical"].values()):
+            raise AssertionError(f"serve_sharded {mode}: the flat-graph "
+                                 f"search at p=S != scatter-gather "
+                                 f"{flat_s[mode]['identical']}")
+        sg_row = by[("scatter_gather", mode)]
+        if sg_row["recall"] < COSINE_RECALL_FLOOR:
+            raise AssertionError(f"serve_sharded {mode}: scatter-gather "
+                                 f"recall {sg_row['recall']} < "
+                                 f"{COSINE_RECALL_FLOOR}")
+        for name, p, mask in runs:
+            r = by[(name, mode)]
+            if p is not None and r["n_computed"] >= sg_row["n_computed"]:
+                raise AssertionError(f"serve_sharded {name} {mode}: "
+                                     f"n_computed not below "
+                                     f"scatter-gather's")
+            if mode == "sq8" and r["recall"] < by[(name, "none")][
+                    "recall"] - 0.02:
+                raise AssertionError(f"serve_sharded {name}: sq8 recall "
+                                     f"{r['recall']} < fp32 - 0.02")
+            if not (r["finite"] and r["shape_ok"]):
+                raise AssertionError(f"bad serving output {r}")
+            if mask is not None:
+                ids = results[(name, mode)].pool_ids.cpu().numpy()
+                if np.isin(ids, parts[0]).any():
+                    raise AssertionError(f"serve_sharded {name} {mode}: a "
+                                         f"pool holds a dead shard's id")
+    for name in ("gather_distance", "gather_distance_sq8",
+                 "prune_recurrence"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"serve_sharded path")
     return launches
 
 
@@ -2330,6 +2765,9 @@ def main() -> int:
     # in the reference as in the port (PERF.md, ROADMAP queue 3)
     by_path["serve_ip"] = phase_serve(counters, data, "ip")
     by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
+    build.release()                  # the captured build steps
+    phase_shard_exact()
+    by_path["serve_sharded"] = phase_serve_sharded(counters, data)
     del data
     build.release()                  # the captured build steps
     torch.cuda.empty_cache()

@@ -2,7 +2,7 @@
 
 Port of ``repro/configs/registry.py``.  ``input_specs`` (the dry-run's
 ``jax.ShapeDtypeStruct`` stand-ins) is not ported: it waits for the
-dry-run's port (ROADMAP queue 1, item 18).
+dry-run's port (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 

@@ -14,10 +14,16 @@ as a mantissa in [1, 2), minus 1, scaled to [minval, maxval).
 ``normal`` is ``jax.random.normal(key, shape, float32)``: a uniform draw in
 (-1, 1) through XLA's float32 ``erf_inv`` (Giles' two-branch polynomial on
 ``w = -log1p(-u*u)``, with XLA's CPU ``log1p`` and ``log``), times sqrt(2).
+``fold_in(key, data)`` is the block function on the counter (0, data);
+``permutation(key, n)`` is jax's sort-based shuffle of ``arange(n)``
+(``ceil(3 ln n / ln(2^32 - 1))`` rounds, each a ``split`` and a stable sort
+keyed by ``random_bits32`` of the second key), and ``choice(key, n, shape,
+replace=False)`` its first ``prod(shape)`` entries.
 The port needs the same draws so a build starts from the same random
 initial graph, and the same HNSW levels, as the reference (FastPGT's
-deterministic random strategy), and so the tuner's Monte-Carlo posterior
-draws are the reference's.
+deterministic random strategy), so the tuner's Monte-Carlo posterior
+draws are the reference's, and so k-means placement starts from the same
+rows and visits the same mini-batches.
 """
 from __future__ import annotations
 
@@ -64,6 +70,34 @@ def split(key, num: int = 2) -> list[tuple[np.uint32, np.uint32]]:
     hi, lo = _iota_2x32(num)
     b1, b2 = threefry2x32(key[0], key[1], hi, lo)
     return [(b1[i], b2[i]) for i in range(num)]
+
+
+def fold_in(key, data: int) -> tuple[np.uint32, np.uint32]:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``."""
+    b1, b2 = threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
+                          np.array([data], np.uint64).astype(np.uint32))
+    return b1[0], b2[0]
+
+
+def permutation(key, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)``: int32[n]."""
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits32(sub, (n,)), kind="stable")]
+    return x
+
+
+def choice(key, n: int, shape: tuple[int, ...]) -> np.ndarray:
+    """``jax.random.choice(key, n, shape, replace=False)``: distinct draws
+    from [0, n), int32[shape]."""
+    size = int(np.prod(shape))
+    if size > n:
+        raise ValueError(f"Cannot take a larger sample (size {size}) than "
+                         f"population (size {n}) when 'replace=False'")
+    return permutation(key, n)[:size].reshape(shape)
 
 
 def _fma(a, b, c) -> np.ndarray:

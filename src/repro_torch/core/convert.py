@@ -4,8 +4,9 @@ A ``repro`` ``BuildResult`` exported with ``np.asarray`` on its arrays
 (``g.ids``, ``g.dist``) plus its plain fields becomes the port's
 ``BuildResult`` (an NSG one the port's ``NSGBuildResult``, an HNSW one
 with its layers, levels, entry and top the port's ``HNSWBuildResult``),
-and a ``repro`` ``RetrievalIndex`` the port's, so a graph or an index
-built by either package can be searched by the other.  A
+a ``repro`` ``ShardedGraph`` the port's, and a ``repro`` ``RetrievalIndex``
+(sharded or not) the port's, so a graph, a partition or an index built by
+either package can be searched by the other.  A
 ``repro`` LM parameter tree becomes the port's ``models.model.LM``, and a
 ``repro`` GP surrogate the port's ``tuner.gp.GPState``.
 Nothing here imports the reference.
@@ -21,6 +22,7 @@ from repro_torch import as_tensor, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.counters import BuildCounters
+from repro_torch.core import graph as graph_lib
 from repro_torch.core.graph import MultiGraph
 from repro_torch.core.hnsw import HNSWBuildResult, HNSWGraphs
 from repro_torch.core.nsg import NSGBuildResult
@@ -99,16 +101,46 @@ def hnsw_result_from_numpy(layer_ids, layer_dist, levels, entry: int,
                            params=list(params), metric=metric)
 
 
+_SHARDED_DTYPES = dict(ids=torch.int32, data=torch.float32,
+                       global_ids=torch.int32, entries=torch.int32,
+                       counts=torch.int32, centroids=torch.float32,
+                       flat_ids=torch.int32, qcodes=torch.int8,
+                       qscale=torch.float32, qnorms=torch.float32)
+
+
+def sharded_graph_from_numpy(fields: dict,
+                             device: "str | torch.device" = "cuda"
+                             ) -> graph_lib.ShardedGraph:
+    """A reference ``ShardedGraph``'s arrays (``{name: np.asarray(value)}``
+    over its fields, None where the field is None) -> the port's, on
+    ``device``.  ``flat_ids`` is computed from ``ids`` when the reference
+    graph has none; the optional fields may be left out."""
+    dev = resolve_device(device)
+    missing = {"ids", "data", "global_ids", "entries", "counts"} - set(
+        fields)
+    if missing:
+        raise ValueError(f"sharded graph without {sorted(missing)}")
+    sg = graph_lib.ShardedGraph(**{
+        f: as_tensor(np.array(fields[f]), dev, dt)
+        for f, dt in _SHARDED_DTYPES.items() if fields.get(f) is not None})
+    if sg.flat_ids is None:
+        sg.flat_ids = graph_lib.flat_adjacency(sg.ids)
+    return sg
+
+
 def retrieval_index_from_numpy(graph_ids, keys, values, search_keys,
                                entry: int, params, metric: str, *,
                                quantize: str = "none", quant=None,
+                               shards=None,
                                device: "str | torch.device" = "cuda"
                                ) -> RetrievalIndex:
-    """A reference (unsharded) index's arrays -> the port's RetrievalIndex.
+    """A reference index's arrays -> the port's RetrievalIndex.
 
     ``params`` is any object with L, M, alpha; ``quant`` the reference's
     ``QuantizedData`` (or any (codes, scale, norms) triple), carried over
-    as it is, never re-quantized."""
+    as it is, never re-quantized.  A sharded index passes its
+    ``ShardedGraph``'s fields as ``shards`` (``sharded_graph_from_numpy``)
+    with ``graph_ids`` and ``search_keys`` None."""
     if quantize not in metric_lib.QUANTIZE_MODES:
         raise ValueError(
             f"quantize {quantize!r} not in {metric_lib.QUANTIZE_MODES}")
@@ -121,13 +153,17 @@ def retrieval_index_from_numpy(graph_ids, keys, values, search_keys,
             as_tensor(np.array(scale), dev, f32),
             as_tensor(np.array(norms), dev, f32))
     return RetrievalIndex(
-        graph_ids=as_tensor(np.array(graph_ids), dev, torch.int32),
+        graph_ids=(None if graph_ids is None else
+                   as_tensor(np.array(graph_ids), dev, torch.int32)),
         keys=as_tensor(np.array(keys), dev, f32),
         values=as_tensor(np.array(values), dev, f32),
-        search_keys=as_tensor(np.array(search_keys), dev, f32),
+        search_keys=(None if search_keys is None else
+                     as_tensor(np.array(search_keys), dev, f32)),
         entry=int(entry), params=VamanaParams(params.L, params.M,
                                               params.alpha),
-        metric=metric, quantize=quantize, quant=quant)
+        metric=metric, quantize=quantize, quant=quant,
+        shards=(None if shards is None else
+                sharded_graph_from_numpy(shards, dev)))
 
 
 def lm_params_from_numpy(tree: dict, cfg: ArchConfig,

@@ -44,16 +44,27 @@ Visited state (``visited_impl``):
 The corpus is either an fp32 (n, d) tensor or a ``metric.QuantizedData``
 (the sq8 serving path): then the hops price int8 codes through the int8
 gather kernel, and ``knn_search`` re-ranks the final pool against fp32.
+
+``sharded_knn_search`` searches a ``graph.ShardedGraph`` on one device,
+the reference's single-device paths (``repro/core/search.py:582-1202``):
+scatter-gather runs the unchanged ``beam_search`` per shard and folds the
+pools in shard order; ``routed_shards=p`` routes each query to its p
+nearest centroids and searches the routed (query, shard) pairs as the
+b*p rows of one ``beam_search`` over the block-diagonal ``flat_ids``.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import as_tensor, resolve_device
 from repro_torch.core import hashset
 from repro_torch.core import metric as metric_lib
+from repro_torch.core import graph as graph_lib
 from repro_torch.core.graph import INVALID
 from repro_torch.kernels import ops
 
@@ -361,11 +372,16 @@ def search_begin(graph_ids: torch.Tensor,      # int32[m, n, Mx]
                  share_cache: bool,
                  metric: str = "l2",
                  visited_impl: str = "dense",
+                 hash_slots: int | None = None,
                  expand_width: int = 1) -> BeamState:
     """A search's state before its first hop: pool[0] = (entry, delta(q,
     entry)) for each (query, graph), visit state and V_delta holding the
     entry (Alg. 1 line 2).  Makes no host sync, so a captured CUDA graph
-    can hold it."""
+    can hold it.
+
+    ``hash_slots`` (a power of two) sizes each (query, graph) hash table
+    instead of ``hashset.auto_slots``; the shared V_delta table then
+    takes ``m * hash_slots`` rounded up to a power of two, capped."""
     if visited_impl not in VISITED_IMPLS:
         raise ValueError(
             f"visited_impl {visited_impl!r} not in {VISITED_IMPLS}")
@@ -399,13 +415,17 @@ def search_begin(graph_ids: torch.Tensor,      # int32[m, n, Mx]
     hashed = visited_impl == "hash"
     if hashed:
         visited = hashset.make_tables(
-            (b, m), hashset.auto_slots(max_hops, width * mx), device=dev)
+            (b, m), hash_slots or hashset.auto_slots(max_hops, width * mx),
+            device=dev)
     else:
         visited = torch.zeros((b, m, n + 1), dtype=torch.bool, device=dev)
     if cache_has is None:
         # the V_delta union absorbs all m graphs' inserts
-        cache_slots = hashset.auto_slots(max_hops, width * mx, searches=m,
-                                         cap=hashset.CACHE_SLOTS_CAP)
+        cache_slots = (
+            min(hashset.next_pow2(m * hash_slots), hashset.CACHE_SLOTS_CAP)
+            if hash_slots else
+            hashset.auto_slots(max_hops, width * mx, searches=m,
+                               cap=hashset.CACHE_SLOTS_CAP))
         cache_d, cache_has = fresh_cache(b, n, share_cache, visited_impl,
                                          slots=cache_slots, device=dev)
     cache_hashed = cache_has.dtype != torch.bool
@@ -567,6 +587,7 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
                 share_cache: bool,
                 metric: str = "l2",
                 visited_impl: str = "dense",
+                hash_slots: int | None = None,
                 expand_width: int = 1) -> SearchResult:
     """Lockstep beam search of b queries over m graphs (one device), one
     host sync per hop.
@@ -578,7 +599,7 @@ def beam_search(graph_ids: torch.Tensor,      # int32[m, n, Mx]
                       entry, cache_d, cache_has, ef_max=ef_max,
                       max_hops=max_hops, share_cache=share_cache,
                       metric=metric, visited_impl=visited_impl,
-                      expand_width=expand_width)
+                      hash_slots=hash_slots, expand_width=expand_width)
     hops = 0
     while hops < max_hops:
         unexp = st.unexpanded()
@@ -615,6 +636,7 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
                max_hops: int | None = None, *,
                metric: str = "l2",
                visited_impl: str = "dense",
+               hash_slots: int | None = None,
                expand_width: int = 1,
                row_mask=None,
                tombstone_ids=None,
@@ -626,7 +648,8 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
     ``metric`` must match the metric the graph was built under; pool
     distances come back in that metric's units.  ``expand_width`` expands
     that many frontier nodes per hop (1 = the paper's schedule);
-    ``row_mask`` marks padding rows, which do no search work.
+    ``row_mask`` marks padding rows, which do no search work;
+    ``hash_slots`` sizes the hash visit tables (``search_begin``).
 
     ``quantize="sq8"`` beam-searches the int8 ``quant`` corpus (a
     ``QuantizedData`` over the same prepared vectors as ``data``) and
@@ -676,7 +699,7 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
         torch.tensor([ef], dtype=torch.int32, device=dev), ep,
         ef_max=ef, max_hops=max_hops or default_max_hops(ef, expand_width),
         share_cache=False, metric=metric, visited_impl=visited_impl,
-        expand_width=expand_width)
+        hash_slots=hash_slots, expand_width=expand_width)
     pool_i, pool_d = res.pool_ids[:, 0], res.pool_dist[:, 0]
     n_comp = res.n_computed
     if quantize == "sq8":
@@ -688,3 +711,277 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
         pool_i, pool_d = apply_tombstones(pool_i, pool_d, tombstone_ids)
     return SearchResult(pool_i[:, :k], pool_d[:, :k], res.n_fresh, n_comp,
                         res.hops, res.cache_d, res.cache_has)
+
+
+# ---------------------------------------------------------------------------
+# Sharded search on one device (reference search.py:582-1202).
+# ---------------------------------------------------------------------------
+
+def route_topk(scores: torch.Tensor, p: int) -> torch.Tensor:
+    """Top-p shard selection from centroid distances (smaller = closer).
+
+    ``scores`` float[b, S] -> int32[b, p] shard ids.  A stable argsort
+    sends equal-distance centroids to the LOWER shard, and the p ids come
+    back ascending, so each query's pools fold in the scatter-gather's
+    serial shard order."""
+    order = torch.argsort(scores, dim=-1, stable=True)
+    return torch.sort(order[..., :p].to(torch.int32), dim=-1).values
+
+
+def _quant_shard(sg, s: int) -> metric_lib.QuantizedData:
+    return metric_lib.QuantizedData(sg.qcodes[s], sg.qscale[s], sg.qnorms[s])
+
+
+def _scatter_gather(sg, queries, row_mask, live, *, ef, max_hops, metric,
+                    visited_impl, hash_slots, expand_width, quantize):
+    """Search every shard with the full ``ef`` pool; fold the pools.
+
+    Each shard runs the unchanged ``beam_search`` on its local subgraph
+    under the row mask ``row_mask & live[s]``: a dead shard searches no
+    row, so its pool is all INVALID/+inf (folding it is a no-op) and its
+    counts and hops are 0.  With ``quantize`` the shard beams over its
+    int8 codes and re-ranks its pool against its fp32 rows.  Pool ids
+    become global ids *before* the fold, which runs left to right in
+    shard order through ``_merge_topk`` (earlier shards win distance
+    ties).  Returns (pool_ids, pool_dist, n_fresh, n_computed, hops):
+    counts summed, hops the maximum."""
+    b, dev = queries.shape[0], queries.device
+    met = metric_lib.resolve(metric)
+    qids = torch.full((b,), INVALID, dtype=torch.int32, device=dev)
+    efs = torch.tensor([ef], dtype=torch.int32, device=dev)
+    pool_i = pool_d = None
+    n_fresh = n_comp = 0
+    hops = 0
+    for s in range(sg.num_shards):
+        ep = sg.entries[s].expand(b).reshape(b, 1)
+        res = beam_search(
+            sg.ids[s][None], _quant_shard(sg, s) if quantize else sg.data[s],
+            queries, qids, row_mask & live[s], efs, ep, ef_max=ef,
+            max_hops=max_hops, share_cache=False, metric=metric,
+            visited_impl=visited_impl, hash_slots=hash_slots,
+            expand_width=expand_width)
+        lids, dist = res.pool_ids[:, 0], res.pool_dist[:, 0]
+        n_comp = n_comp + res.n_computed
+        if quantize:
+            lids, dist, n_rr = rerank_pool(queries, met.prepare(sg.data[s]),
+                                           lids, metric=metric)
+            n_comp = n_comp + n_rr
+        gids = torch.where(lids == INVALID, INVALID,
+                           sg.global_ids[s][torch.clamp_min(lids, 0).long()])
+        if pool_i is None:
+            pool_i, pool_d = gids, dist
+        else:
+            pool_i, pool_d, _ = _merge_topk(
+                pool_i, pool_d, torch.zeros_like(pool_i, dtype=torch.bool),
+                gids, dist)
+        n_fresh = n_fresh + res.n_fresh
+        hops = max(hops, res.hops)
+    return pool_i, pool_d, n_fresh, n_comp, hops
+
+
+def _fused_routed(sg, queries, row_mask, live, p, *, ef, max_hops, metric,
+                  visited_impl, hash_slots, expand_width, quantize):
+    """Routed search as ONE beam search over the block-diagonal flat graph.
+
+    Routing runs on the device: the prepared queries score the centroids,
+    dead shards score +inf, and ``route_topk`` picks each query's p
+    shards.  Row r of the search is (query r // p, its (r % p)-th routed
+    shard), entered at that shard's entry in flat ids; a row cannot leave
+    its shard, so under dense visit state each row equals the per-shard
+    search's (under hash state while no table overflows: flat and local
+    ids hash to other slots).  With ``quantize`` each row's pool re-ranks
+    against the flat fp32 rows before the per-query fold, in ascending
+    shard order.  Counts total the routed rows' work; hops is the
+    maximum over rows."""
+    met = metric_lib.resolve(metric)
+    b, dev = queries.shape[0], queries.device
+    num_shards, n_s, d = sg.data.shape
+    flat_data = sg.data.reshape(-1, d)
+    flat_gids = sg.global_ids.reshape(-1)
+    beam_data = (metric_lib.QuantizedData(
+        sg.qcodes.reshape(-1, d), sg.qscale[0], sg.qnorms.reshape(-1))
+        if quantize else flat_data)
+    scores = metric_lib.kernel_distance(
+        met.prepare(queries)[:, None, :], sg.centroids[None], met.kernel)
+    scores = torch.where(live[None, :], scores, float("inf"))
+    routed = route_topk(scores, p)                       # (b, p) ascending
+    qrows = queries.repeat_interleave(p, dim=0)          # (b*p, d)
+    ep = (sg.entries[routed.long()] + routed * n_s).reshape(-1, 1)
+    res = beam_search(
+        sg.flat_ids[None], beam_data, qrows,
+        torch.full((b * p,), INVALID, dtype=torch.int32, device=dev),
+        row_mask.repeat_interleave(p, dim=0),
+        torch.tensor([ef], dtype=torch.int32, device=dev), ep.contiguous(),
+        ef_max=ef, max_hops=max_hops, share_cache=False, metric=metric,
+        visited_impl=visited_impl, hash_slots=hash_slots,
+        expand_width=expand_width)
+    lids, dist = res.pool_ids[:, 0], res.pool_dist[:, 0]   # (b*p, ef) flat
+    n_comp = res.n_computed
+    if quantize:
+        lids, dist, n_rr = rerank_pool(qrows, met.prepare(flat_data), lids,
+                                       metric=metric)
+        n_comp = n_comp + n_rr
+    gpool = torch.where(lids == INVALID, INVALID,
+                        flat_gids[torch.clamp_min(lids, 0).long()]
+                        ).reshape(b, p, -1)
+    dpool = dist.reshape(b, p, -1)
+    pool_i, pool_d = gpool[:, 0], dpool[:, 0]
+    for j in range(1, p):
+        pool_i, pool_d, _ = _merge_topk(
+            pool_i, pool_d, torch.zeros_like(pool_i, dtype=torch.bool),
+            gpool[:, j].contiguous(), dpool[:, j].contiguous())
+    return pool_i, pool_d, res.n_fresh, n_comp, res.hops
+
+
+# Warn-once state of the routed_shards > live-shards clamp: the (num_shards,
+# n_live, p) state that last warned.  A degraded serving loop calls
+# sharded_knn_search every batch, so the clamp warns once per state
+# transition; an unclamped routed call resets it.
+_CLAMP_WARNED_STATE: "tuple[int, int, int] | None" = None
+
+
+def sharded_knn_search(sharded_graph, queries, k: int, ef: int, *,
+                       metric: str = "l2", visited_impl: str = "dense",
+                       hash_slots: int | None = None, expand_width: int = 1,
+                       max_hops: int | None = None, row_mask=None,
+                       routed_shards: int | None = None, shard_mask=None,
+                       tombstone_ids=None,
+                       quantize: str = "none") -> SearchResult:
+    """Scatter-gather k-ANNS over a ``graph.ShardedGraph``, on its device.
+
+    Each shard searches its own subgraph with the full ``ef`` pool through
+    the unchanged ``beam_search``; pools are restored to global ids and
+    fold in shard order through ``_merge_topk`` (earlier shards win
+    distance ties).  ``n_fresh`` / ``n_computed`` total every searched
+    shard's work; ``hops`` is the maximum over shards.  With one shard the
+    result equals ``knn_search``'s from the same entry.
+
+    ``routed_shards=p`` searches only each query's p nearest shards by
+    centroid distance (``route_topk``), as the b*p rows of one search over
+    ``flat_ids``; ``p == S`` is scatter-gather itself.  ``shard_mask``
+    (bool[S], True = alive) drops dead shards from routing and from the
+    fold, and the counts count live shards only; an all-False mask raises,
+    and ``routed_shards`` above the live count clamps with a warning (once
+    per state).  ``tombstone_ids`` (int32[T] global ids, INVALID-padded)
+    masks deleted nodes out of the folded ef-wide pool before the k cut.
+    ``quantize="sq8"`` beams over the shards' int8 codes and re-ranks
+    every per-shard pool against fp32 before the fold; the re-rank adds to
+    ``n_computed``.  An all-True mask and an empty ``tombstone_ids`` take
+    the healthy path unchanged."""
+    if k > ef:
+        raise ValueError(
+            f"k={k} > ef={ef}: the search pool holds only ef candidates, so "
+            f"slots beyond ef would be INVALID padding, silently returning "
+            f"fewer than k real neighbors; raise ef to at least k")
+    if visited_impl not in VISITED_IMPLS:
+        raise ValueError(
+            f"visited_impl {visited_impl!r} not in {VISITED_IMPLS}")
+    if quantize not in metric_lib.QUANTIZE_MODES:
+        raise ValueError(
+            f"quantize {quantize!r} not in {metric_lib.QUANTIZE_MODES}")
+    if quantize == "sq8" and getattr(sharded_graph, "qcodes", None) is None:
+        raise ValueError(
+            "quantize='sq8' needs per-shard int8 codes but this "
+            "ShardedGraph has none — rebuild it with "
+            "graph.partition(..., quantize='sq8') (or "
+            "retrieval.build_index(quantize='sq8')), which stores them")
+    if expand_width < 1:
+        raise ValueError(f"expand_width must be >= 1, got {expand_width}")
+    sg = sharded_graph
+    dev = sg.ids.device
+    if row_mask is not None:
+        row_mask = torch.as_tensor(row_mask)
+        if row_mask.dtype != torch.bool:
+            raise ValueError(
+                f"row_mask dtype {row_mask.dtype} must be bool: integer "
+                f"masks silently cast inside the search (0/1 arithmetic "
+                f"instead of validity), so a wrong-dtype mask would search "
+                f"padding rows; pass a bool array")
+    num_shards = sg.num_shards
+    if shard_mask is not None:
+        shard_mask = np.asarray(shard_mask.cpu() if isinstance(
+            shard_mask, torch.Tensor) else shard_mask)
+        if shard_mask.dtype != np.bool_:
+            raise ValueError(
+                f"shard_mask dtype {shard_mask.dtype} must be bool: an "
+                f"integer mask would silently cast inside the search; pass "
+                f"a bool array (True = shard alive)")
+        if shard_mask.shape != (num_shards,):
+            raise ValueError(
+                f"shard_mask shape {shard_mask.shape} must be "
+                f"({num_shards},): one liveness flag per shard of this "
+                f"ShardedGraph")
+        if bool(shard_mask.all()):
+            shard_mask = None           # healthy path
+        elif not bool(shard_mask.any()):
+            raise ValueError(
+                f"shard_mask is all-False: every one of the {num_shards} "
+                f"shards is marked dead, so no shard can answer the query "
+                f"— an all-INVALID pool would be silently softmaxed by "
+                f"retrieval attention.  Refusing to search; restore at "
+                f"least one shard")
+    n_live = int(shard_mask.sum()) if shard_mask is not None else num_shards
+    global _CLAMP_WARNED_STATE
+    if routed_shards is not None:
+        p = int(routed_shards)
+        if not 1 <= p <= num_shards:
+            raise ValueError(
+                f"routed_shards={routed_shards} must be in [1, "
+                f"num_shards={num_shards}]: each query searches its top-p "
+                f"shards by centroid distance")
+        if p > n_live:
+            clamp_state = (num_shards, n_live, p)
+            if _CLAMP_WARNED_STATE != clamp_state:
+                warnings.warn(
+                    f"routed_shards={p} exceeds the {n_live} live shards "
+                    f"(shard_mask kills {num_shards - n_live}); clamping "
+                    f"to {n_live} — every live shard is searched",
+                    stacklevel=2)
+                _CLAMP_WARNED_STATE = clamp_state
+            p = n_live
+        else:
+            _CLAMP_WARNED_STATE = None
+        if p == num_shards:
+            routed_shards = None       # degenerate: exact scatter-gather
+        elif sg.centroids is None:
+            raise ValueError(
+                "routed_shards needs per-shard centroids; this ShardedGraph "
+                "has none — rebuild it with graph.partition (any "
+                "assignment), which stores them")
+        else:
+            routed_shards = p
+    if tombstone_ids is not None:
+        tombstone_ids = as_tensor(tombstone_ids, dev, torch.int32)
+        if tombstone_ids.dim() != 1:
+            raise ValueError(f"tombstone_ids must be a 1-D id array, got "
+                             f"shape {tuple(tombstone_ids.shape)}")
+        if tombstone_ids.shape[0] == 0:
+            tombstone_ids = None       # empty: the healthy path
+    queries = as_tensor(queries, dev, torch.float32)
+    b = queries.shape[0]
+    row_mask = (torch.ones(b, dtype=torch.bool, device=dev)
+                if row_mask is None else row_mask.to(dev))
+    live = torch.as_tensor(np.ones(num_shards, bool) if shard_mask is None
+                           else shard_mask, device=dev)
+    kw = dict(ef=ef, max_hops=max_hops or default_max_hops(ef, expand_width),
+              metric=metric, visited_impl=visited_impl,
+              hash_slots=hash_slots, expand_width=expand_width,
+              quantize=quantize == "sq8")
+    if routed_shards is None:
+        pool_i, pool_d, n_fresh, n_comp, hops = _scatter_gather(
+            sg, queries, row_mask, live, **kw)
+    else:
+        if sg.flat_ids is None:
+            sg = dataclasses.replace(
+                sg, flat_ids=graph_lib.flat_adjacency(sg.ids))
+        pool_i, pool_d, n_fresh, n_comp, hops = _fused_routed(
+            sg, queries, row_mask, live, routed_shards, **kw)
+    if tombstone_ids is not None:
+        pool_i, pool_d = apply_tombstones(pool_i, pool_d, tombstone_ids)
+    pool_i, pool_d = pool_i[:, :k], pool_d[:, :k]
+    if routed_shards is not None:
+        pool_i = torch.where(row_mask[:, None], pool_i, INVALID)
+        pool_d = torch.where(row_mask[:, None], pool_d, float("inf"))
+    dummy_d, dummy_has = fresh_cache(b, 1, False, device=dev)
+    return SearchResult(pool_i, pool_d, n_fresh, n_comp, hops, dummy_d,
+                        dummy_has)

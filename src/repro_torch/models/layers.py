@@ -6,7 +6,7 @@ holding each weight in the reference's layout (``wq`` (d, H, dh), ``wo``
 (``core/convert.lm_params_from_numpy``).  They carry no gradient: the port
 has no training slice yet.  The reference's ``constrain`` sharding hints
 are no-ops without a mesh and are dropped here, with the ``*_axes``
-functions (sharding is ROADMAP queue 1, item 16).
+functions (sharding is ROADMAP queue 1, item 9).
 
 Full-sequence attention goes through ``ops.flash_attention`` (the
 hand-written kernel on a CUDA tensor); one-token decode attention is plain
@@ -107,7 +107,7 @@ def _no_cross(memory):
     if memory is not None:
         raise NotImplementedError(
             "cross-attention over encoder memory (whisper) is not ported "
-            "yet: ROADMAP queue 1, item 16")
+            "yet: ROADMAP queue 1, item 9")
 
 
 def attention_train(p, x, *, n_heads, n_kv, d_head, causal=True, window=0,

@@ -17,7 +17,7 @@ The uniform API, as in the reference:
 
 Only attention mixers with dense FFNs are ported.  Mamba, MoE, mLSTM /
 sLSTM, cross-attention (whisper) and the vision stub (llava's patches)
-raise ``NotImplementedError`` naming ROADMAP queue 1, item 16.
+raise ``NotImplementedError`` naming ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
-_TODO = "not ported yet: ROADMAP queue 1, item 16"
+_TODO = "not ported yet: ROADMAP queue 1, item 9"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,7 @@ tie rule is unchanged).
 search knobs live, with the reference's validation.  Attaching a retrieval
 index to the engine goes through the resilience layer, which is not ported
 yet: ``attach_retrieval``, ``retrieve`` and ``swap_retrieval_index`` raise
-``NotImplementedError`` naming ROADMAP queue 1, item 14.
+``NotImplementedError`` naming ROADMAP queue 1, item 7.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import retrieval as retrieval_lib
 
 _RESILIENCE = ("the resilience layer (serve/resilience.py) is not ported "
-               "yet: ROADMAP queue 1, item 14")
+               "yet: ROADMAP queue 1, item 7")
 
 
 @dataclasses.dataclass(frozen=True)

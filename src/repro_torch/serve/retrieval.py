@@ -1,6 +1,6 @@
 """Retrieval attention: decode-time attention over a PG index of the keys.
 
-Port of the unsharded half of ``repro/serve/retrieval.py``.  Long-context
+Port of ``repro/serve/retrieval.py``.  Long-context
 decode attends over an enormous KV cache; RetrievalAttention (the paper's
 ref [8]) searches a proximity graph over one head's keys for each query's
 top-k keys and softmax-attends over only those.  The index is built under
@@ -12,7 +12,14 @@ context length) and to ``DEFAULT_EXPAND_WIDTH`` frontier nodes per hop.
 ``build_index(quantize="sq8")`` also stores an int8 view of the prepared
 keys: searches then beam over the codes through the int8 gather kernel
 and re-rank the final pool against fp32.  The graph build itself is
-always the fp32 per-batch Vamana build.
+always an fp32 Vamana build (``build_impl`` per_batch or fused).
+
+``build_index(num_shards=S, assign=...)`` partitions the prepared keys
+("chunked", "random" or "kmeans" placement, ``graph.partition``) and
+builds one Vamana subindex per shard; searches then go through
+``search.sharded_knn_search`` (scatter-gather, or ``routed_shards=p``
+centroid routing, with an optional ``shard_mask`` of live shards) and
+return global key ids.  All shards live on the index's one device.
 
 Entry points run on the index's device; ``build_index`` takes ``device=``
 (default "cuda") and raises without a card unless given ``device="cpu"``.
@@ -32,40 +39,48 @@ from repro_torch.core import vamana as vamana_lib
 # Serving-side multi-expansion width; builders keep W = 1.
 DEFAULT_EXPAND_WIDTH = 4
 
-_SHARDS_TODO = ("sharded serving is not ported yet: ROADMAP.md queue 1, "
-                "item 13 (sharding and routing)")
-
 
 @dataclasses.dataclass
 class RetrievalIndex:
-    graph_ids: torch.Tensor      # int32[n_ctx, M_max] over one head's keys
+    graph_ids: torch.Tensor | None   # int32[n_ctx, M_max] (None if sharded)
     keys: torch.Tensor           # f32[n_ctx, dh] raw keys (attention logits)
     values: torch.Tensor         # f32[n_ctx, dh]
-    search_keys: torch.Tensor    # f32[n_ctx, dh] metric-prepared once
-    entry: int                   # entry node id
+    search_keys: torch.Tensor | None  # f32[n_ctx, dh] metric-prepared once
+                                      # (None if sharded: shards.data)
+    entry: int                   # global entry node id
     params: vamana_lib.VamanaParams
     metric: str                  # public metric name ("ip" | "cosine" | "l2")
     quantize: str = "none"       # corpus representation searches default to
-    quant: metric_lib.QuantizedData | None = None   # int8 view ("sq8")
+    quant: metric_lib.QuantizedData | None = None   # unsharded int8 view
+    shards: graph_lib.ShardedGraph | None = None    # partitioned index
+                                 # (its own int8 view on shards.q*)
 
     @property
     def kernel(self) -> str:
         """Kernel form searches run under (search_keys are prepared)."""
         return metric_lib.resolve(self.metric).kernel
 
+    @property
+    def num_shards(self) -> int:
+        return 1 if self.shards is None else self.shards.num_shards
+
 
 def build_index(keys, values, params: vamana_lib.VamanaParams, *,
                 metric: str = "ip", seed: int = 0, batch_size: int = 256,
-                num_shards: int = 1, build_impl: str = "per_batch",
-                quantize: str = "none",
+                num_shards: int = 1, assign: str = "chunked",
+                build_impl: str = "per_batch", quantize: str = "none",
                 device: "str | torch.device" = "cuda") -> RetrievalIndex:
     """Index one head's keys under ``metric`` (default: native ip).
 
     The metric's preparation runs once here and ``search_keys`` keeps the
     prepared matrix; ``quantize="sq8"`` adds its int8 view.  The graph is
-    built fp32 whatever ``quantize`` says."""
-    if num_shards != 1:
-        raise NotImplementedError(_SHARDS_TODO)
+    built fp32 whatever ``quantize`` says.
+
+    ``num_shards > 1`` partitions the prepared keys with placement
+    ``assign`` ("chunked" | "random" | "kmeans") and builds a Vamana
+    subindex over each shard with the same ``params`` and ``build_impl``;
+    ``entry`` is shard 0's entry as a global id, and ``graph_ids`` and
+    ``search_keys`` are None (the prepared keys live in ``shards.data``)."""
     if quantize not in metric_lib.QUANTIZE_MODES:
         raise ValueError(
             f"quantize {quantize!r} not in {metric_lib.QUANTIZE_MODES}")
@@ -74,6 +89,22 @@ def build_index(keys, values, params: vamana_lib.VamanaParams, *,
     keys = as_tensor(keys, dev, torch.float32)
     values = as_tensor(values, dev, torch.float32)
     search_keys = met.prepare(keys).contiguous()
+    if num_shards != 1:
+        def shard_builder(local):
+            res = vamana_lib.build_vamana(
+                local, params, seed=seed, batch_size=batch_size,
+                metric=met.kernel, build_impl=build_impl, device=dev)
+            return res.g.ids[0], res.entry
+
+        shards = graph_lib.partition(
+            search_keys, num_shards, assignment=assign, seed=seed,
+            build_fn=shard_builder, metric=met.kernel, quantize=quantize,
+            device=dev)
+        entry = int(shards.global_ids[0][int(shards.entries[0])])
+        return RetrievalIndex(graph_ids=None, keys=keys, values=values,
+                              search_keys=None, entry=entry, params=params,
+                              metric=met.name, quantize=quantize,
+                              shards=shards)
     res = vamana_lib.build_vamana(search_keys, params, seed=seed,
                                   batch_size=batch_size, metric=met.kernel,
                                   build_impl=build_impl, device=dev)
@@ -106,12 +137,26 @@ def _search_index(idx: RetrievalIndex, qs: torch.Tensor, top_k: int,
                   routed_shards: int | None = None, shard_mask=None,
                   tombstone_ids=None, quantize: str | None = None
                   ) -> search_lib.SearchResult:
-    """Search one prepared-query batch.  ``quantize=None`` takes the
-    index's own representation; "none" forces the fp32 path of a quantized
-    index, "sq8" needs an index that stored codes."""
-    if routed_shards not in (None, 1) or shard_mask is not None:
-        raise NotImplementedError(_SHARDS_TODO)
+    """Search one prepared-query batch on the unsharded or the sharded
+    index.  ``quantize=None`` takes the index's own representation; "none"
+    forces the fp32 path of a quantized index, "sq8" needs an index that
+    stored codes."""
     quantize = idx.quantize if quantize is None else quantize
+    if idx.shards is not None:
+        return search_lib.sharded_knn_search(
+            idx.shards, qs, top_k, ef, metric=idx.kernel,
+            visited_impl=visited_impl, expand_width=expand_width,
+            row_mask=row_mask, routed_shards=routed_shards,
+            shard_mask=shard_mask, tombstone_ids=tombstone_ids,
+            quantize=quantize)
+    if routed_shards not in (None, 1):
+        raise ValueError(
+            f"routed_shards={routed_shards} on an unsharded index: routing "
+            f"selects among shards, so build the index with num_shards > 1")
+    if shard_mask is not None:
+        raise ValueError(
+            "shard_mask on an unsharded index: liveness masking selects "
+            "among shards, so build the index with num_shards > 1")
     return search_lib.knn_search(
         idx.graph_ids, idx.search_keys, qs, top_k, ef, idx.entry,
         metric=idx.kernel, visited_impl=visited_impl,
@@ -131,7 +176,9 @@ def retrieval_attention(idx: RetrievalIndex, q, *, top_k: int, ef: int,
                         ) -> tuple[torch.Tensor, search_lib.SearchResult]:
     """Approximate attention for decode queries q (B, dh): search the PG
     for each query's top_k keys and softmax-attend over those.  Returns
-    (out (B, dh), SearchResult)."""
+    (out (B, dh), SearchResult).  On a sharded index ``routed_shards=p``
+    searches each query's p nearest shards and ``shard_mask`` (bool[S])
+    drops dead shards from routing and merge."""
     q = as_tensor(q, idx.keys.device, torch.float32)
     qs = metric_lib.resolve(idx.metric).prepare(q)
     res = _search_index(idx, qs, top_k, ef, visited_impl, expand_width,

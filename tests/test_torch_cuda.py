@@ -10,7 +10,7 @@ versions.  Flash attention: rtol/atol 5e-4 in fp32 (the reference's own)
 and one bf16 rounding in bf16 (rtol 2^-7, atol 1e-3): the kernel and the
 plain version start from the same bf16 inputs, accumulate in fp32 and
 round the output once.  The LM card against CPU: 1e-4 (full fp32, TF32
-off).  The tuner's GP fit card against CPU: 1e-3 of each field's largest
+off).  Sharded serving card against CPU: exact on integer keys.  The tuner's GP fit card against CPU: 1e-3 of each field's largest
 magnitude; its (m)EHVI scores 1e-5.
 """
 import numpy as np
@@ -278,6 +278,72 @@ def test_card_serving_equals_cpu_on_integer_data(card):
         assert int(r_gpu.n_computed) == int(r_cpu.n_computed)
         assert r_gpu.hops == r_cpu.hops
         torch.testing.assert_close(o_gpu.cpu(), o_cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("assign", ["chunked", "random"])
+def test_card_sharded_serving_equals_cpu(card, assign):
+    """A 4-shard sq8 index (fused per-shard Vamana) built on the card and
+    on the CPU: the same ShardedGraph, and the same pools and counters
+    under scatter-gather, routed p=2 (dense and hash), a dead shard, sq8
+    and tombstones."""
+    import dataclasses
+    from repro_torch.core import search, vamana
+    from repro_torch.serve import retrieval
+    r = np.random.default_rng(12)
+    keys = r.integers(-127, 128, (800, 16)).astype(np.float32)
+    keys[np.arange(16), np.arange(16)] = 127
+    vals = r.normal(size=(800, 16)).astype(np.float32)
+    q = r.integers(-9, 10, (40, 16)).astype(np.float32)
+    p = vamana.VamanaParams(24, 12, 1.0)
+    idx = {dev: retrieval.build_index(keys, vals, p, num_shards=4,
+                                      assign=assign, quantize="sq8",
+                                      build_impl="fused", batch_size=64,
+                                      device=dev)
+           for dev in ("cuda", "cpu")}
+    for f in dataclasses.fields(idx["cpu"].shards):
+        assert torch.equal(getattr(idx["cuda"].shards, f.name).cpu(),
+                           getattr(idx["cpu"].shards, f.name)), f.name
+    dead = np.array([True, False, True, True])
+    tomb = np.arange(0, 800, 11).astype(np.int32)
+    for kw in (dict(), dict(routed_shards=2),
+               dict(routed_shards=2, visited_impl="dense"),
+               dict(shard_mask=dead), dict(routed_shards=2, shard_mask=dead),
+               dict(quantize="sq8"), dict(routed_shards=2, quantize="sq8"),
+               dict(tombstone_ids=tomb)):
+        kw = {"visited_impl": "hash", "expand_width": 4, **kw}
+        res = {dev: search.sharded_knn_search(idx[dev].shards, q, 8, 24,
+                                              metric="ip", **kw)
+               for dev in idx}
+        got, want = res["cuda"], res["cpu"]
+        assert torch.equal(got.pool_ids.cpu(), want.pool_ids), kw
+        assert torch.equal(got.pool_dist.cpu(), want.pool_dist), kw
+        assert int(got.n_fresh) == int(want.n_fresh), kw
+        assert int(got.n_computed) == int(want.n_computed), kw
+        assert int(got.hops) == int(want.hops), kw
+
+
+def test_card_kmeans_is_deterministic_and_balanced(card):
+    """k-means on the card: two runs give the same partition (no float
+    atomics in the Lloyd sums), every id once, within the capacity."""
+    from repro_torch.core import graph
+    r = np.random.default_rng(3)
+    centers = r.normal(size=(64, 32)) * 2
+    x = torch.from_numpy((centers[r.integers(0, 64, 20000)]
+                          + r.normal(size=(20000, 32))).astype(np.float32))
+    runs = [graph._kmeans_parts(20000, 8, x.to(card), "cosine", 4)
+            for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1])
+    for a, b in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(a, b)
+    parts = runs[0][0]
+    # the public entry point, on the card by default, from host data
+    for a, b in zip(graph.shard_assignment(20000, 8, assignment="kmeans",
+                                           seed=4, data=x.numpy(),
+                                           metric="cosine"), parts):
+        np.testing.assert_array_equal(a, b)
+    assert np.array_equal(np.sort(np.concatenate(parts)), np.arange(20000))
+    assert max(len(p) for p in parts) <= int(np.ceil(20000 / 8 * 1.05))
+    assert min(len(p) for p in parts) >= 1
 
 
 @pytest.mark.parametrize("L", [1, 16, 48, 128, 257])

@@ -142,20 +142,24 @@ def test_tombstones_match_reference():
 
 
 def test_sharded_and_fused_raise_not_implemented():
-    """What the port leaves to later slices raises, naming the ROADMAP
-    item: sharded serving (item 13).  The fused build, once on that list,
-    is ported: build_index's build_impl="fused" builds the per_batch
-    index."""
+    """Sharded serving and the fused build, once left to later slices, are
+    ported: build_index(num_shards=2) builds a sharded index, and
+    build_index's build_impl="fused" builds the per_batch index.  What
+    still raises is the reference's own refusal: routing or a shard mask
+    on an unsharded index (ValueError)."""
     from repro_torch.core import vamana
     from repro_torch.serve import retrieval
     keys = np.zeros((16, 4), np.float32)
     p = vamana.VamanaParams(4, 2, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        retrieval.build_index(keys, keys, p, num_shards=2, device="cpu")
+    sharded = retrieval.build_index(keys + np.eye(16, 4, dtype=np.float32),
+                                    keys, p, num_shards=2, batch_size=16,
+                                    device="cpu")
+    assert sharded.num_shards == 2 and sharded.graph_ids is None
     idx, fused = (retrieval.build_index(
         keys + np.eye(16, 4, dtype=np.float32), keys, p, batch_size=16,
         build_impl=impl, device="cpu") for impl in ("per_batch", "fused"))
     assert torch.equal(idx.graph_ids, fused.graph_ids)
-    for kw in (dict(routed_shards=2), dict(shard_mask=[True, False])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+    for kw, what in ((dict(routed_shards=2), "routed_shards=2"),
+                     (dict(shard_mask=[True, False]), "shard_mask")):
+        with pytest.raises(ValueError, match=f"{what} on an unsharded"):
             retrieval.retrieval_attention(idx, keys[:2], top_k=2, ef=4, **kw)
