@@ -11,8 +11,11 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  ``flash_attention.cu``, ``prune.cu``), started together;
                  ptxas's registers, stack and spills for each distance,
                  flash and prune kernel (``pairwise_ptxas`` names each
-                 pairwise body by its template arguments), and the bf16
-                 flash kernel's dynamic shared memory per padded head dim.
+                 pairwise body by its template arguments; ``flash_ptxas``
+                 both flash bodies, ``prune_ptxas`` both prune bodies), the
+                 bf16 and fp32 flash bodies' dynamic shared memory per
+                 padded head dim, and the largest L of the shared-memory
+                 prune body (checked against the wrapper's).
 3. kernels    -- each CUDA kernel (fp32 and int8 gather, fp32 and int8
                  pairwise, flash attention, the prune recurrence) against
                  its plain PyTorch
@@ -36,15 +39,20 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  achieved TFLOP/s, bound share and special-function floor
                  at four settings, with SDPA beside it at soft-cap 0
                  (causal, and causal with an explicit window mask); the
-                 fp32 flash body (``fp32_body``) causal at soft-cap 0 at
-                 (1, 16, 8192, 224) and lm_width's (2, 16, 64, 224),
-                 beside its fp32-FMA bound and SDPA in fp32; the prune
-                 recurrence bit for bit at the forward prune's (256, 128),
-                 NSG's (256, 160) and (256, 88) and the reverse re-prune's
-                 (8192, 48) (and two edge shapes), on geometric and
-                 random inputs, m_limit reached
-                 and not, timed at both path shapes beside the bytes its
-                 data needs.
+                 fp32 flash body (``fp32_body``: 3xTF32 on the tensor
+                 cores) causal at soft-cap 0 at (1, 16, 8192, 224) and
+                 lm_width's (2, 16, 64, 224), beside its 3xTF32 bound
+                 and SDPA in fp32 (with the kernel the profiler names),
+                 and on a line of their own (``flash_f32_floors``) the
+                 computed fp32-FMA bound and MUFU floor; the
+                 prune recurrence bit for bit at the forward prune's (256,
+                 128), NSG's (256, 160) and (256, 88), the reverse
+                 re-prune's (8192, 48), the tune path's buckets, 32-bit
+                 word edges (31, 33) and both sides of the shared-memory
+                 body's largest L (1024, 1025: the register body), on
+                 geometric and random inputs, m_limit reached and not,
+                 timed at both path shapes (device time in a CUDA graph)
+                 beside the bytes its data needs.
 4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
                  in [-4, 4]) built with each family's 4 configs (Vamana,
                  HNSW, NSG): the fused build on the card == the per_batch
@@ -159,10 +167,15 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  teacher-forced ``decode_step`` == forward to 2e-2 (the
                  reference's bound), and a ``ServeEngine`` run of 4
                  requests on 2 slots with identical tokens on both.
+                 Beside it, outside the counted run, the card forward with
+                 the flash kernel's plain version in its place
+                 (``plain_attention_card_vs_cpu``): what the card's other
+                 kernels leave, so the kernel's own share shows.
 9. lm_width   -- gemma2_9b's full widths cut to one period group (a local
                  and a global layer), fp32, B=2, S=64: forward (flash
                  kernel) == teacher-forced decode (plain attention) to
-                 2e-2, card forward == CPU forward to 1e-3.
+                 2e-2, card forward == CPU forward to 1e-3, and the
+                 card forward with plain attention beside it, as in 8.
 10. lm_prefill -- the full 42-layer gemma2_9b in bf16 (random weights from
                  a seeded generator on the card), forward of 1 x 8192
                  tokens: finite logits, exactly 42 flash launches; wall
@@ -207,6 +220,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
+TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor cores
 RTOL, ATOL = 1e-5, 1e-4        # gaussian data: summation order differs
 # One degree bucket (M_max = 32) for all four configs, so every graph of
 # the grouped build equals its single build (the random initial graph is
@@ -403,7 +417,16 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = dict(zip(sources, _build.load_all(sources)))
     smem = libs["flash_attention"].flash_attention_bf16_smem
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    smem_f32 = libs["flash_attention"].flash_attention_f32_smem
+    for fn in (smem, smem_f32):
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    from repro_torch.kernels import prune
+    smem_max_l = libs["prune"].prune_recurrence_smem_max_l
+    smem_max_l.restype = ctypes.c_int
+    if smem_max_l() != prune.SMEM_MAX_L:
+        raise AssertionError(f"prune.cu's shared-memory body takes L <= "
+                             f"{smem_max_l()}, the wrapper says "
+                             f"{prune.SMEM_MAX_L}")
     distance = _build.ptxas_summary(_build.PTXAS.get("distance", ""))
     emit("build", sources=[f"{n}.cu" for n in sources],
          seconds=time.perf_counter() - t0, nvcc_seconds=_build.BUILD_SECONDS,
@@ -413,8 +436,11 @@ def phase_build() -> None:
          flash_ptxas=_build.ptxas_summary(
              _build.PTXAS.get("flash_attention", ""), "flash_attention"),
          flash_bf16_smem_bytes={dp: smem(dp) for dp in (64, 128, 224, 256)},
+         flash_f32_smem_bytes={dp: smem_f32(dp)
+                               for dp in (64, 128, 224, 256)},
          prune_ptxas=_build.ptxas_summary(_build.PTXAS.get("prune", ""),
-                                          "prune_recurrence_kernel"))
+                                          "prune_recurrence"),
+         prune_smem_max_l=smem_max_l())
 
 
 def pairwise_bodies(rows: list[dict]) -> list[dict]:
@@ -944,14 +970,22 @@ def _flash_row(fa, gen) -> dict:
     lib_w = timed(window, 0.0, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=wmask))
     del q, k, v, wmask
-    fp32 = [_flash_f32_timed(fa, gen, b, s_, cfg_h, cfg_dh)
-            for (b, s_) in ((1, PREFILL_S), (WIDTH_B, WIDTH_S))]
-    # an estimate beside the measurements, kept off the kernels line: the
+    fp32, fp32_floors = zip(*(_flash_f32_timed(fa, gen, b, s_, cfg_h,
+                                               cfg_dh, sfu_rate)
+                              for (b, s_) in ((1, PREFILL_S),
+                                              (WIDTH_B, WIDTH_S))))
+    # estimates beside the measurements, kept off the kernels line: the
     # rate is an assumed 16 MUFU operations a clock on each SM
     emit("flash_sfu_floor", sfu_ops_per_s=sfu_rate,
          note="computed, not measured: 16 MUFU operations a clock per SM "
               "at nvidia-smi's clocks.max.sm, MUFU operations a pair "
               "counted from the kernel's source", settings=sfu)
+    emit("flash_f32_floors", settings=list(fp32_floors),
+         note="computed, not measured, beside fp32_body's own bound_ms "
+              "(3xTF32 at 495 TFLOP/s): bound_fp32_fma_ms is 4 h pairs dh "
+              "FLOP at 67 TFLOP/s (or the bytes), sfu_floor_ms one exp2 a "
+              "pair at 16 MUFU operations a clock per SM; the shares are "
+              "of the measured ms")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:91",
@@ -977,7 +1011,7 @@ def _flash_row(fa, gen) -> dict:
                     library_ms=lib_w["library_ms"],
                     library_ms_spread=lib_w["library_ms_spread"],
                     **settings(lib_w)),
-                fp32_body=fp32,
+                fp32_body=list(fp32),
                 library="torch.nn.functional.scaled_dot_product_attention("
                         "is_causal=True) at softcap 0 and no window: the "
                         "nearest library call, not the same function (it "
@@ -986,13 +1020,18 @@ def _flash_row(fa, gen) -> dict:
                 shapes_checked=checked)
 
 
-def _flash_f32_timed(fa, gen, b: int, s: int, h: int, dh: int) -> dict:
-    """The fp32 SIMT flash body (flash_attention_kernel; it runs only in
-    parity checks), causal at soft-cap 0, where SDPA in fp32 computes the
-    same function: checked against its plain version, then timed beside
-    it and SDPA, with its bound at the fp32 FMA rate."""
+def _flash_f32_timed(fa, gen, b: int, s: int, h: int, dh: int,
+                     sfu_rate: float) -> tuple[dict, dict]:
+    """The fp32 flash body (flash_attention_tf32_kernel, 3xTF32 on the
+    tensor cores; the LM's fp32 phases run it), causal at soft-cap 0, where
+    SDPA in fp32 computes the same function: checked against its plain
+    version, then timed beside it and SDPA (whose kernel the profiler
+    names), with the 3xTF32 products at the dense TF32 peak as its bound.
+    Returns that row and, apart, the computed floors beside it: the same
+    attention at the fp32 FMA rate and the MUFU floor."""
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
     q, k, v = (torch.randn((b, h, s, dh), generator=gen, device="cuda")
                for _ in range(3))
     got = fa.flash_attention(q, k, v, causal=True)
@@ -1004,20 +1043,42 @@ def _flash_f32_timed(fa, gen, b: int, s: int, h: int, dh: int) -> dict:
         raise AssertionError(f"flash_attention fp32 {(b, h, s, dh)} causal: "
                              f"max err {err} beyond rtol {rtol}, atol {atol}")
     del got, want
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
     row = timed_row(lambda: fa.flash_attention(q, k, v, causal=True),
                     lambda: fa.flash_attention_plain(q, k, v, causal=True),
-                    lambda: F.scaled_dot_product_attention(q, k, v,
-                                                           is_causal=True),
-                    reps=2 if s >= 4096 else 20)
-    flops = 4.0 * b * h * _attended_pairs(s, s, True, 0, 0) * dh
-    row["bound_ms"], row["bound_by"] = bound_ms(4.0 * 4 * q.numel(), flops)
-    row["tflops"] = flops / (row["ms"] * 1e9)
+                    sdpa, reps=2 if s >= 4096 else 20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    row["library_kernels"] = sorted(
+        {e.key for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA})
+    pairs = _attended_pairs(s, s, True, 0, 0)
+    flops = 4.0 * b * h * pairs * dh
+    nbytes = 4.0 * 4 * q.numel()
+    # each product as three TF32 products (3xTF32)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 3 * flops,
+                                                TF32_FLOPS)
     row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["tflops"] = flops / (row["ms"] * 1e9)
+    fma_ms, _ = bound_ms(nbytes, flops)
+    sfu_ms = b * h * pairs / sfu_rate * 1e3
+    floors = dict(shape=[b, h, s, s, dh], ms=row["ms"],
+                  bound_fp32_fma_ms=fma_ms,
+                  bound_fp32_fma_share=fma_ms / row["ms"],
+                  sfu_floor_ms=sfu_ms, sfu_floor_share=sfu_ms / row["ms"])
     del q, k, v
     return dict(shape=[b, h, s, s, dh], dtype="float32", causal=True,
                 window=0, softcap=0.0, max_abs_err=err, **row,
+                bound="bound_ms: 3 x 4 h pairs dh FLOP (3xTF32) at 495 "
+                      "TFLOP/s; the fp32-FMA bound and the MUFU floor are "
+                      "on the flash_f32_floors line",
+                mma="mma.sync.m16n8k8.tf32, 3xTF32 (flash_attention_tf32_"
+                    "kernel)",
                 library="torch.nn.functional.scaled_dot_product_attention("
-                        "is_causal=True) in fp32")
+                        "is_causal=True) in fp32"), floors
 
 
 def _prune_inputs(gen, b: int, L: int, limit: int, geometric: bool):
@@ -1072,12 +1133,17 @@ def _prune_row(prk, gen) -> dict:
     m_limit reached and never reached; timed at both main path shapes on
     geometric inputs."""
     import torch
+
+    def body(L):
+        return "smem" if L <= prk.SMEM_MAX_L else "register"
+
     checked = []
     for (b, L) in ((256, 128), (256, 160), (256, 88), (8192, 48), (1, 257),
                    (300, 16), (256, 16), (256, 32), (256, 48), (256, 64),
                    (256, 80), (256, 96), (256, 112), (4096, 32),
-                   (2048, 24)):
-        for geometric in (True, False):
+                   (2048, 24), (7, 31), (7, 33), (3, prk.SMEM_MAX_L),
+                   (3, prk.SMEM_MAX_L + 1)):
+        for geometric in (True, False) if L <= 257 else (False,):
             for limit in (32 if L > 32 else L // 2, L + 1):
                 valid, md, lim = _prune_inputs(gen, b, L, limit, geometric)
                 got = prk.prune_recurrence(valid, md, lim)
@@ -1086,7 +1152,8 @@ def _prune_row(prk, gen) -> dict:
                         and torch.equal(got[1], want[1])):
                     raise AssertionError(f"prune kernel != plain loop at "
                                          f"{(b, L)} limit {limit}")
-                checked.append([b, L, limit, int(geometric)])
+                checked.append([b, L, limit, int(geometric),
+                                body(L)])
 
     def timed(b, L):
         valid, md, lim = _prune_inputs(gen, b, L, 32, True)
@@ -1103,7 +1170,9 @@ def _prune_row(prk, gen) -> dict:
         row["bound_full_ms"], _ = bound_ms(b * L * L + b * L + 4 * b
                                            + 2 * b * L, 0.0)
         row["accepted_mean"] = float(acc.sum(-1).float().mean())
+        row["accepted_max"] = int(acc.sum(-1).max())
         row["shape"] = [b, L]
+        row["body"] = body(L)
         return row
 
     fwd, rev = timed(256, 128), timed(8192, 48)
@@ -1113,6 +1182,9 @@ def _prune_row(prk, gen) -> dict:
                          "src/repro/core/prune.py:104",
                 launches=0, max_abs_err=0.0, **fwd, reverse=rev,
                 shapes_checked=checked,
+                bodies=f"prune_recurrence_smem_kernel for L <= "
+                       f"{prk.SMEM_MAX_L}, prune_recurrence_kernel<NW> "
+                       f"above",
                 library="none: no single PyTorch call computes the "
                         "recurrence")
 
@@ -2489,6 +2561,28 @@ def _teacher_forced(M, model, toks):
                       for t in range(toks.shape[1])], dim=1)
 
 
+def _plain_attention_err(M, card, toks, want) -> float:
+    """Largest difference from the CPU logits ``want`` of the card forward
+    with the flash kernel's plain version in its place: the rest of the
+    card's arithmetic, without the kernel's (run outside counted runs)."""
+    import torch
+    from repro_torch.kernels import ops
+    real = ops._fa
+
+    class Plain:
+        @staticmethod
+        def flash_attention(*a, **kw):
+            return real.flash_attention_plain(*a, **kw)
+
+    ops._fa = Plain
+    try:
+        got = M.forward(card, toks.cuda())
+        torch.cuda.synchronize()
+    finally:
+        ops._fa = real
+    return float((got.cpu() - want).abs().max())
+
+
 def phase_lm_exact(counters: dict) -> dict:
     """gemma2_9b's smoke config in fp32 on the card and on the CPU."""
     import numpy as np
@@ -2514,11 +2608,14 @@ def phase_lm_exact(counters: dict) -> dict:
         tokens[dev] = [r.out for r in reqs]
     torch.cuda.synchronize()
     launches = read_counts(counters)
+    want = M.forward(cpu, toks)
     err_cpu = _assert_close("lm_exact forward card vs CPU", full.cpu(),
-                            M.forward(cpu, toks), 1e-4)
+                            want, 1e-4)
     err_dec = _assert_close("lm_exact decode vs forward", dec, full, 2e-2)
+    err_plain = _plain_attention_err(M, card, toks, want)
     emit("lm_exact", arch=cfg.name, layers=cfg.n_layers, window=cfg.window,
          batch=EXACT_B, prompt=EXACT_S, forward_card_vs_cpu=err_cpu,
+         plain_attention_card_vs_cpu=err_plain,
          decode_vs_forward=err_dec, engine_tokens=tokens,
          engine_identical=tokens["cuda"] == tokens["cpu"], launches=launches)
     if tokens["cuda"] != tokens["cpu"]:
@@ -2555,12 +2652,13 @@ def phase_lm_width(counters: dict) -> dict:
     err_dec = _assert_close("lm_width decode vs forward", dec, full, 2e-2)
     err_cpu = _assert_close("lm_width forward card vs CPU", full.cpu(), want,
                             1e-3)
+    err_plain = _plain_attention_err(M, card, toks, want)
     emit("lm_width", arch=LM_ARCH, layers=cfg.n_layers,
          windows=[k.window for k in M.layer_plan(cfg)], d_model=cfg.d_model,
          heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
          vocab=cfg.vocab, batch=WIDTH_B, seq=WIDTH_S, dtype="float32",
          decode_vs_forward=err_dec, forward_card_vs_cpu=err_cpu,
-         card_forward_s=fwd_s, cpu_forward_s=cpu_s, launches=launches,
+         plain_attention_card_vs_cpu=err_plain, card_forward_s=fwd_s, cpu_forward_s=cpu_s, launches=launches,
          reduced=f"{cfg.n_layers} of {full_cfg.n_layers} layers")
     if launches["flash_attention"] != cfg.n_layers:
         raise AssertionError(f"lm_width: {launches['flash_attention']} "

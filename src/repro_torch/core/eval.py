@@ -89,6 +89,12 @@ def flat_graph_search_fn(g: MultiGraph, graph_idx: int, data, entry: int,
     return fn
 
 
+def best_qps_at_recall(points: list[EvalPoint], target: float) -> float:
+    """Best QPS among eval points meeting Recall@k >= target (0 if none)."""
+    ok = [p.qps for p in points if p.recall >= target]
+    return max(ok) if ok else 0.0
+
+
 def frontier_objectives(points: list[EvalPoint]) -> tuple[float, float]:
     """(best QPS, best recall) knee pair: maximize qps * recall."""
     if not points:

@@ -100,6 +100,16 @@ COSINE = Metric("cosine", "ip", normalize=True)
 _REGISTRY: dict[str, Metric] = {m.name: m for m in (L2, IP, COSINE)}
 
 
+def register(metric: Metric) -> Metric:
+    """Add a custom metric to the registry (e.g. a scaled ip variant)."""
+    _REGISTRY[metric.name] = metric
+    return metric
+
+
+def names() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
 def resolve(metric: "str | Metric") -> Metric:
     """Accept a Metric or its registered name; reject anything else."""
     if isinstance(metric, Metric):

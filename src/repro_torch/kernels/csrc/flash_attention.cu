@@ -78,11 +78,52 @@
 //   - The epilogue normalizes, rounds to bf16, stages each warp's rows in
 //     its own Q rows of shared memory and stores 16-byte chunks.
 //
-// fp32: flash_attention_kernel, SIMT (fp32 runs only in parity checks;
-// TF32 tensor cores would not hold the reference's 5e-4).  One
-// 256-thread block per 64 query rows; each warp keeps 8 rows' max, sum and
-// output in registers; 32-key steps of K and V are staged in shared
-// memory; q.k as float4 FMAs, P.V through shuffles; tanhf and expf.
+// fp32: flash_attention_tf32_kernel<DP>, on the tensor cores in 3xTF32.
+//
+// Bound: operations.  One TF32 rounding of the operands (10 mantissa bits)
+// would not hold the reference's 5e-4, so each product runs as three:
+// with x = big + small (big x's top 10 mantissa bits, small = x - big), a.b
+// = as.bb + ab.bs + ab.bb (the dropped as.bs and small's own rounding are
+// ~2^-20 relative), near fp32 accuracy.  At (1, 16, 8192, 224) causal that
+// is 3 x 481 GFLOP at the 495 TFLOP/s dense TF32 peak: 2.92 ms, the bound
+// of this design (the fp32-FMA bound of the same attention is 7.18 ms at
+// 67 TFLOP/s), with the MUFU floor (~0.13 ms: one ex2 a pair at soft-cap 0)
+// beside it.
+//
+// Design (mma.sync.m16n8k8.tf32, not wgmma: TF32 wgmma reads both operands
+// K-major from shared memory or A from registers, so the split halves of
+// K and V would need their own tiles (V transposed) and twice the shared
+// memory of an fp32 tile that already fills 227 KB at dh 224; the warp-level
+// product takes each operand's halves from registers, split as it loads):
+//   - One 256-thread block of 8 warps owns 128 query rows of one slice, 16
+//     a warp; each warp keeps its 16 x DP fp32 output (DP/2 registers a
+//     thread), running max and sum in registers.  dh is padded to DP in
+//     {64, 128, 224, 256}.  Q sits in shared memory for the whole block.
+//   - Keys go in tiles of 32.  K_0, V_0, K_1, V_1, ... stream through a ring
+//     of 3 tiles by 16-byte cp.async copies, two entries ahead of the
+//     product that reads them (element copies where dh % 4 != 0 or a base
+//     is unaligned).  Tiles are [row][DP] with 32-byte column groups
+//     swizzled by the row, so every fragment load is free of bank
+//     conflicts.  128 x 224 fp32 Q and 3 tiles: 196 KB.
+//   - Each operand is split as it is read from shared memory (two
+//     instructions: a mask and a subtraction) and each product is three
+//     mma.sync.  S = Q.K^T permutes the head dims of each k8 step to 2t,
+//     2t + 1 in both operands, so every Q and K fragment is one 64-bit
+//     load.  P.V takes the keys in the order S's accumulator holds them
+//     (a thread's columns 2t, 2t + 1 are A's k-columns t and t + 4), so P
+//     goes from the accumulator to the A fragment with no shuffle and V's
+//     B fragment reads rows 2t, 2t + 1.
+//   - The softmax is the bf16 body's (base 2, ex2.approx, the sentinel,
+//     masks only on tiles that straddle an edge of this warp's rows; a warp
+//     skips the products of a tile wholly masked for its rows, the identity
+//     update), but the soft-cap is softcap * tanhf(s / softcap).  The bf16
+//     body's 1 - 2 / (1 + 2^(2u log2 e)) subtracts two numbers near the cap:
+//     its error is absolute, ~1e-5 of a logit at cap 50 even with exact
+//     exp2 and reciprocal, where tanhf's is relative (~2 ulp), and that
+//     difference, carried through the layers, is what an fp32 model's
+//     logits show.
+//   - Blocks are ordered with the last query blocks first (grid y reversed).
+//   - The epilogue normalizes and stores each thread's column pairs.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or the shared-memory opt-in's error) so the
@@ -852,178 +893,376 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 // ---------------------------------------------------------------- fp32 --
 
-constexpr int FA_WARPS = 8;
-constexpr int FA_ROWS = 8;                     // query rows per warp
-constexpr int FA_BQ = FA_WARPS * FA_ROWS;      // 64 query rows per block
-constexpr int FA_BK = 32;                      // keys per step, one per lane
-constexpr int FA_THREADS = FA_WARPS * 32;
-constexpr int FA_COLS = FA_MAX_DH / 32;        // output columns per lane
+constexpr int F_WARPS = 8;
+constexpr int F_THREADS = F_WARPS * 32;
+constexpr int F_BQ = F_WARPS * 16;             // 128 query rows a block
+constexpr int F_BK = 32;                       // keys a tile
+constexpr int F_STAGES = 3;                    // tiles in the K/V ring
 
-// dh rounded up to a multiple of 4 (float4 reads); the padding is zero
-__host__ __device__ __forceinline__ int padded(int dh) {
-  return (dh + 3) & ~3;
-}
-// K row stride in floats: a multiple of 4 whose quotient by 4 is odd, so
-// the 8 lanes of each quarter-warp float4 read start on distinct banks
-__host__ __device__ __forceinline__ int k_stride(int dh) {
-  const int p = padded(dh);
-  return ((p / 4) % 2 == 1) ? p : p + 4;
-}
-
-__host__ __device__ __forceinline__ size_t smem_bytes(int dh) {
-  return sizeof(float) *
-         (static_cast<size_t>(FA_BQ) * padded(dh) +
-          static_cast<size_t>(FA_BK) * k_stride(dh) +
-          static_cast<size_t>(FA_BK) * padded(dh));
+// An fp32 tile is [row][DP] floats with its 8-float (32-byte) column groups
+// swizzled by the row: Q and K tiles XOR the group by row % 4 (the 64-bit
+// fragment loads of 4 rows x 8 columns a half-warp reads fall on distinct
+// banks), V tiles by (row / 2) % 4 (the 32-bit loads of rows 2t, 2t + 1 at
+// 8 columns do).  A 16-byte chunk stays whole, inside its 32-column group.
+enum { SW_QK = 0, SW_V = 1 };
+template <int SW>
+__device__ __forceinline__ int swz(int r) {
+  return SW == SW_QK ? (r & 3) << 3 : ((r >> 1) & 3) << 3;
 }
 
-// rows [row0, row0 + n_tile) of a (n_rows, dh) matrix into dst (row stride
-// ld floats); rows past n_rows and columns in [dh, padded(dh)) become 0
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int row0, int n_tile, int n_rows,
-                                          int dh) {
-  const int dhp = padded(dh);
-  const int total = n_tile * dhp;
-  for (int e = threadIdx.x; e < total; e += FA_THREADS) {
-    const int r = e / dhp;
-    const int c = e - r * dhp;
-    const int gr = row0 + r;
-    float x = 0.f;
-    if (gr < n_rows && c < dh) x = src[static_cast<int64_t>(gr) * dh + c];
-    dst[r * ld + c] = x;
+template <int DP>
+struct F32Shape {
+  static constexpr int TILE = F_BK * DP;       // floats of a K or V tile
+  static constexpr size_t Q_BYTES = sizeof(float) * F_BQ * DP;
+  static constexpr size_t TILE_BYTES = sizeof(float) * TILE;
+  static constexpr size_t SMEM = Q_BYTES + F_STAGES * TILE_BYTES;
+  static_assert(DP % 32 == 0, "the swizzle stays inside 32-column groups");
+  static_assert(SMEM <= 232448, "a block may use 227 KB of shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x as a TF32 pair: big is x with its low 13 mantissa bits cleared (exactly
+// TF32), small = x - big (exact in fp32, of which the tensor core keeps the
+// top 11 bits): big + small = x to ~2^-21 relative
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  const uint32_t b = __float_as_uint(x) & 0xffffe000u;
+  big = b;
+  small = __float_as_uint(x - __uint_as_float(b));
+}
+
+// d (16 x 8, fp32) += a (16 x 8, tf32) . b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a . b in 3xTF32: the two small cross terms, then big . big
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+  mma_tf32(d, as, bb);
+  mma_tf32(d, ab, bs);
+  mma_tf32(d, ab, bb);
+}
+
+// rows [row0, row0 + ROWS) of a (n_rows, dh) fp32 matrix into the swizzled
+// tile at dst; rows past n_rows and columns in [dh, DP) become 0.  vec:
+// 16-byte cp.async copies (dh % 4 == 0, 16-byte aligned bases), left in
+// flight for the caller's commit and wait; else element by element.
+template <int DP, int ROWS, int SW>
+__device__ __forceinline__ void load_f32(float* dst,
+                                         const float* __restrict__ src,
+                                         int row0, int n_rows, int dh,
+                                         int vec) {
+  if (vec) {
+    constexpr int CH = DP / 4;
+    for (int e = threadIdx.x; e < ROWS * CH; e += F_THREADS) {
+      const int r = e / CH;
+      const int c = 4 * (e - r * CH);
+      const int gr = row0 + r;
+      const bool in = gr < n_rows && c < dh;
+      cp_async16(smem_u32(dst + r * DP + (c ^ swz<SW>(r))),
+                 in ? src + static_cast<int64_t>(gr) * dh + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DP; e += F_THREADS) {
+      const int r = e / DP;
+      const int c = e - r * DP;
+      const int gr = row0 + r;
+      dst[r * DP + (c ^ swz<SW>(r))] =
+          (gr < n_rows && c < dh) ? src[static_cast<int64_t>(gr) * dh + c]
+                                  : 0.f;
+    }
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+template <int DP>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_attention_tf32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, int sq, int sk, int dh,
+                            float scale, int causal, int window,
+                            float softcap, int q_offset, int vec) {
+  using S = F32Shape<DP>;
+  extern __shared__ __align__(16) float fsmem[];
+  float* qs = fsmem;                                    // [F_BQ][DP]
+  float* ring = fsmem + F_BQ * DP;                // [F_STAGES][F_BK][DP]
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__global__ void __launch_bounds__(FA_THREADS, 1)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int sq, int sk, int dh, float scale, int causal,
-                       int window, float softcap, int q_offset) {
-  extern __shared__ __align__(16) float smem[];
-  const int dhp = padded(dh);
-  const int ldk = k_stride(dh);
-  float* qs = smem;                          // [FA_BQ][dhp]
-  float* ks = qs + FA_BQ * dhp;              // [FA_BK][ldk]
-  float* vs = ks + FA_BK * ldk;              // [FA_BK][dhp]
-
-  const int64_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * FA_BQ;
+  const int64_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F_BQ;   // last blocks first
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r0 = warp * FA_ROWS;             // this warp's first local row
+  const int g = lane >> 2;                              // fragment row
+  const int t = lane & 3;                               // fragment column
   const float* __restrict__ qb = q + bh * sq * dh;
   const float* __restrict__ kb = k + bh * sk * dh;
   const float* __restrict__ vb = v + bh * sk * dh;
   float* __restrict__ ob = o + bh * sq * dh;
 
-  load_tile(qs, dhp, qb, q0, FA_BQ, sq, dh);
-
-  // keys any row of this block may attend; steps outside are fully masked
+  // keys any row of this block may attend, in whole tiles
   const int a_lo = q_offset + q0;
-  const int a_hi = q_offset + min(q0 + FA_BQ, sq) - 1;
+  const int a_hi = q_offset + min(q0 + F_BQ, sq) - 1;
   const int kv_end = causal ? min(sk, a_hi + 1) : sk;
   const int kv_begin = window > 0 ? max(0, a_lo - window + 1) : 0;
+  const int t_begin = kv_begin / F_BK;
+  const int t_end = kv_end > kv_begin ? (kv_end + F_BK - 1) / F_BK
+                                      : t_begin;
+  const int n_tiles = t_end - t_begin;
 
-  float m[FA_ROWS], l[FA_ROWS], acc[FA_ROWS][FA_COLS];
+  // this warp's 16 rows of the block
+  const int wr = warp * 16;
+  const bool w_rows = q0 + wr < sq;
+  const int w_lo = q_offset + q0 + wr;
+  const int w_hi = q_offset + min(q0 + wr + 15, sq - 1);
+  const int qpos0 = w_lo + g;                           // rows g and g + 8
+
+  // base-2 logits: t2 = s * sc2, or cap2 tanh(s * uc)
+  const float sc2 = scale * LOG2E;
+  const float uc = softcap > 0.f ? scale / softcap : 0.f;
+  const float cap2 = softcap * LOG2E;
+
+  // Fragment offsets, fixed a thread.  S = Q.K^T takes the 8 head dims of
+  // k-step kk in the order 2t, 2t + 1 of each lane (a permutation applied
+  // to both operands alike), so each lane reads its two dims as one 64-bit
+  // load: dims 8 kk + 2t, + 1 of a Q or K row r (r % 4 == g % 4) sit at
+  // column 32 (kk / 4) + xk[kk % 4].  O += P.V takes keys in the order of
+  // S's accumulator (row g holds keys 2t, 2t + 1 of each 8): B reads V rows
+  // 8 j + 2t and + 1 at head dim 8 n + g, column 32 (n / 4) + xv[n % 4].
+  int xk[4], xv[4];
 #pragma unroll
-  for (int r = 0; r < FA_ROWS; ++r) {
-    m[r] = FA_NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < FA_COLS; ++c) acc[r][c] = 0.f;
+  for (int p = 0; p < 4; ++p) {
+    xk[p] = 8 * (p ^ (g & 3)) + 2 * t;
+    xv[p] = 8 * (p ^ t) + g;
   }
+  const float* qa = qs + (wr + g) * DP;                 // rows g, g + 8
 
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += FA_BK) {
-    __syncthreads();                         // previous tiles consumed
-    load_tile(ks, ldk, kb, kv0, FA_BK, sk, dh);
-    load_tile(vs, dhp, vb, kv0, FA_BK, sk, dh);
-    __syncthreads();
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {FA_NEG, FA_NEG};
+  float l[2] = {0.f, 0.f};
+  float s[F_BK / 8][4];
 
-    // this lane's key against the warp's rows
-    float s[FA_ROWS];
+  // the online softmax of a tile's logits in s (base 2, soft-capped, masked
+  // where the tile straddles a mask's edge for this warp's rows): s becomes
+  // P, l and m are updated, and O is scaled by the change of the max
+  auto softmax = [&](int k0) {
+    if (softcap > 0.f) {
 #pragma unroll
-    for (int r = 0; r < FA_ROWS; ++r) s[r] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(ks + lane * ldk);
-#pragma unroll 2
-    for (int d4 = 0; d4 < dhp / 4; ++d4) {
-      const float4 kk = krow[d4];
+      for (int j = 0; j < F_BK / 8; ++j)
 #pragma unroll
-      for (int r = 0; r < FA_ROWS; ++r) {
-        const float4 qq =
-            reinterpret_cast<const float4*>(qs + (r0 + r) * dhp)[d4];
-        s[r] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = cap2 * tanhf(s[j][e] * uc);
+    } else {
+#pragma unroll
+      for (int j = 0; j < F_BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sc2;
+    }
+    const bool masked = k0 + F_BK > sk || (causal && k0 + F_BK - 1 > w_lo) ||
+                        (window > 0 && k0 <= w_hi - window);
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < F_BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // s[j][e]: row g + 8 (e / 2), key 8 j + 2 t + e % 2
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = qpos0 + (e >> 1) * 8;
+          const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          if (!ok) s[j][e] = FA_NEG;
+        }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < F_BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float base2[2], alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no attended key yet: masked logits (the sentinel)
+      // exponentiate against 0, so they give exactly 0
+      base2[r] = mx[r] == FA_NEG ? 0.f : mx[r];
+      alpha[r] = ex2(m[r] - base2[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < F_BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(s[j][e] - base2[e >> 1]);
+        rsum[e >> 1] += s[j][e];
       }
-    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rsum[r];
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+  };
 
-    // online softmax over this step's 32 keys, row by row
-    const int kpos = kv0 + lane;
-#pragma unroll
-    for (int r = 0; r < FA_ROWS; ++r) {
-      const int qpos = q_offset + q0 + r0 + r;
-      float x = s[r] * scale;
-      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-      bool ok = kpos < sk;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window > 0) ok = ok && kpos > qpos - window;
-      x = ok ? x : FA_NEG;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float p = ok ? expf(x - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = alpha * l[r] + warp_sum(p);
-      m[r] = m_new;
-      s[r] = p;
-#pragma unroll
-      for (int c = 0; c < FA_COLS; ++c) acc[r][c] *= alpha;
+  // Ring entry e is K_(e/2) for even e and V_(e/2) for odd e, in slot
+  // e % F_STAGES; every thread issues its copies of an entry and commits
+  // one cp.async group for it (empty past the last tile), so that group e
+  // holds entry e (group 0 also Q).  Tile i's K is waited for, and the
+  // block synchronized, before S_i; its V before P.V_i.  Each wait allows
+  // F_STAGES - 2 groups in flight, and each sync is followed by the copies
+  // of the entry F_STAGES - 1 ahead, into the slot whose tile every warp
+  // has finished with (V_(i-1) after the first, K_i after the second).
+  auto issue = [&](int e) {
+    if (e < 2 * n_tiles) {
+      float* dst = ring + (e % F_STAGES) * S::TILE;
+      const int row0 = (t_begin + (e >> 1)) * F_BK;
+      if (e & 1)
+        load_f32<DP, F_BK, SW_V>(dst, vb, row0, sk, dh, vec);
+      else
+        load_f32<DP, F_BK, SW_QK>(dst, kb, row0, sk, dh, vec);
     }
-
-    // acc += P . V, each key's probabilities broadcast from its lane
-#pragma unroll 4
-    for (int j = 0; j < FA_BK; ++j) {
-      float pj[FA_ROWS];
+    cp_async_commit();
+  };
+  if (n_tiles > 0) {
+    load_f32<DP, F_BQ, SW_QK>(qs, qb, q0, sq, dh, vec);
+    for (int e = 0; e < F_STAGES - 1; ++e) issue(e);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (t_begin + i) * F_BK;
+    // warp-uniform: does any row of this warp attend a key of the tile?
+    // (a tile wholly masked for the warp is the identity update)
+    const bool live = w_rows && !(causal && k0 > w_hi) &&
+                      !(window > 0 && k0 + F_BK - 1 <= w_lo - window);
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();
+    issue(2 * i + F_STAGES - 1);
+    if (live) {
+      const float* kt = ring + ((2 * i) % F_STAGES) * S::TILE + g * DP;
 #pragma unroll
-      for (int r = 0; r < FA_ROWS; ++r)
-        pj[r] = __shfl_sync(0xffffffffu, s[r], j);
-      const float* vrow = vs + j * dhp;
+      for (int j = 0; j < F_BK / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < FA_COLS; ++c) {
-        const int col = lane + 32 * c;
-        if (col < dhp) {
-          const float vv = vrow[col];
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-          for (int r = 0; r < FA_ROWS; ++r) acc[r][c] += pj[r] * vv;
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const int c = 32 * (kk >> 2) + xk[kk & 3];
+        const float2 q_lo = *reinterpret_cast<const float2*>(qa + c);
+        const float2 q_hi = *reinterpret_cast<const float2*>(qa + 8 * DP + c);
+        uint32_t ab[4], as[4];
+        split_tf32(q_lo.x, ab[0], as[0]);
+        split_tf32(q_hi.x, ab[1], as[1]);
+        split_tf32(q_lo.y, ab[2], as[2]);
+        split_tf32(q_hi.y, ab[3], as[3]);
+#pragma unroll
+        for (int j = 0; j < F_BK / 8; ++j) {
+          const float2 kv =
+              *reinterpret_cast<const float2*>(kt + 8 * j * DP + c);
+          uint32_t bb[2], bs[2];
+          split_tf32(kv.x, bb[0], bs[0]);
+          split_tf32(kv.y, bb[1], bs[1]);
+          mma_3xtf32(s[j], ab, as, bb, bs);
+        }
+      }
+      softmax(k0);
+    }
+    cp_async_wait<F_STAGES - 2>();
+    __syncthreads();
+    issue(2 * i + F_STAGES);
+    if (live) {
+      const float* vt =
+          ring + ((2 * i + 1) % F_STAGES) * S::TILE + 2 * t * DP;
+#pragma unroll
+      for (int j = 0; j < F_BK / 8; ++j) {
+        // P's A fragment in the key order of S's accumulator
+        uint32_t ab[4], as[4];
+        split_tf32(s[j][0], ab[0], as[0]);
+        split_tf32(s[j][2], ab[1], as[1]);
+        split_tf32(s[j][1], ab[2], as[2]);
+        split_tf32(s[j][3], ab[3], as[3]);
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n) {
+          const float* vr = vt + 8 * j * DP + 32 * (n >> 2) + xv[n & 3];
+          uint32_t bb[2], bs[2];
+          split_tf32(vr[0], bb[0], bs[0]);
+          split_tf32(vr[DP], bb[1], bs[1]);
+          mma_3xtf32(acc[n], ab, as, bb, bs);
         }
       }
     }
   }
 
+  // normalize and store (row g + 8 h, head dims 8 n + 2 t, + 1)
 #pragma unroll
-  for (int r = 0; r < FA_ROWS; ++r) {
-    const int row = q0 + r0 + r;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float inv[2] = {1.f / (l[0] > 0.f ? l[0] : 1.f),
+                        1.f / (l[1] > 0.f ? l[1] : 1.f)};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
     if (row >= sq) continue;
-    const float denom = l[r] > 0.f ? l[r] : 1.f;
     float* orow = ob + static_cast<int64_t>(row) * dh;
 #pragma unroll
-    for (int c = 0; c < FA_COLS; ++c) {
-      const int col = lane + 32 * c;
-      if (col < dh) orow[col] = acc[r][c] / denom;
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      const float x0 = acc[n][2 * h] * inv[h];
+      const float x1 = acc[n][2 * h + 1] * inv[h];
+      if (col >= dh) continue;
+      if (vec) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
+      } else {
+        orow[col] = x0;
+        if (col + 1 < dh) orow[col + 1] = x1;
+      }
     }
   }
+}
+
+template <int DP>
+int launch_tf32(const float* q, const float* k, const float* v, float* o,
+                int bh, int sq, int sk, int dh, float scale, int causal,
+                int window, float softcap, int q_offset,
+                cudaStream_t stream) {
+  const size_t smem = F32Shape<DP>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tf32_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte copies need rows of whole 16-byte units from aligned bases
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = dh % 4 == 0 && aligned(q) && aligned(k) && aligned(v) &&
+                  aligned(o);
+  const dim3 grid(bh, (sq + F_BQ - 1) / F_BQ);
+  flash_attention_tf32_kernel<DP><<<grid, F_THREADS, smem, stream>>>(
+      q, k, v, o, sq, sk, dh, scale, causal, window, softcap, q_offset, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // the arguments both entry points take; 0 means launch, else the error
@@ -1038,23 +1277,26 @@ int check_args(int bh, int sq, int sk, int dh) {
 extern "C" {
 
 // q (bh, sq, dh), k and v (bh, sk, dh), o (bh, sq, dh), all contiguous
-// fp32; causal 0/1, window 0 = none, softcap 0 = none.
+// fp32; causal 0/1, window 0 = none, softcap 0 = none.  On the tensor
+// cores in 3xTF32 (fp32 accumulation), dh padded to 64, 128, 224 or 256.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* o, int bh, int sq, int sk, int dh, float scale,
                         int causal, int window, float softcap, int q_offset,
                         void* stream) {
   if (const int bad = check_args(bh, sq, sk, dh)) return bad;
   if (static_cast<int64_t>(bh) * sq == 0) return 0;
-  const size_t smem = smem_bytes(dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + FA_BQ - 1) / FA_BQ, bh);
-  flash_attention_kernel<<<grid, FA_THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, o, sq, sk, dh, scale, causal, window, softcap, q_offset);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dh <= 64)
+    return launch_tf32<64>(q, k, v, o, bh, sq, sk, dh, scale, causal, window,
+                           softcap, q_offset, st);
+  if (dh <= 128)
+    return launch_tf32<128>(q, k, v, o, bh, sq, sk, dh, scale, causal,
+                            window, softcap, q_offset, st);
+  if (dh <= 224)
+    return launch_tf32<224>(q, k, v, o, bh, sq, sk, dh, scale, causal,
+                            window, softcap, q_offset, st);
+  return launch_tf32<256>(q, k, v, o, bh, sq, sk, dh, scale, causal, window,
+                          softcap, q_offset, st);
 }
 
 // The same over bf16 tensors on the tensor cores (fp32 accumulation, bf16
@@ -1081,6 +1323,14 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                            window, softcap, q_offset, st);
   return launch_wgmma<256>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
                          window, softcap, q_offset, st);
+}
+
+// Dynamic shared memory (bytes) an fp32 launch at head dim dh takes.
+int flash_attention_f32_smem(int dh) {
+  if (dh <= 64) return static_cast<int>(F32Shape<64>::SMEM);
+  if (dh <= 128) return static_cast<int>(F32Shape<128>::SMEM);
+  if (dh <= 224) return static_cast<int>(F32Shape<224>::SMEM);
+  return static_cast<int>(F32Shape<256>::SMEM);
 }
 
 // Dynamic shared memory (bytes) a bf16 launch at head dim dh takes.

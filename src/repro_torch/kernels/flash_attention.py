@@ -6,14 +6,16 @@ forward (the prefill) calls once per attention layer.  It computes
 attention with a causal mask, a sliding window, the logit soft-cap
 ``softcap * tanh(x / softcap)`` and ``q_offset``, by online softmax with the
 finite -1e30 sentinel; fully masked rows give 0.  Heads must already be
-GQA-repeated.  The CUDA kernels are in ``csrc/flash_attention.cu``: bound
-by operations.  bf16 runs ``flash_attention_wgmma_kernel`` on the tensor
-cores (wgmma for Q.K^T and P.V, 128 query rows a block in two warpgroups,
-64-key K/V tiles brought in by TMA on mbarriers, 2 K and 3 V stages, P
-split into two bf16 parts for the P.V product, dh padded to 64, 128, 224
-or 256); fp32 runs the SIMT ``flash_attention_kernel`` (64 query rows a
-block, fp32 throughout).  See the source note there.  fp32 accumulation in
-both, dh up to 256.
+GQA-repeated.  The CUDA kernels are in ``csrc/flash_attention.cu``, both
+on the tensor cores, bound by operations, 128 query rows a block, dh
+padded to 64, 128, 224 or 256, fp32 accumulation, dh up to 256.  bf16 runs
+``flash_attention_wgmma_kernel`` (wgmma for Q.K^T and P.V in two
+warpgroups, 64-key K/V tiles brought in by TMA on mbarriers, 2 K and 3 V
+stages, P split into two bf16 parts for the P.V product).  fp32 runs
+``flash_attention_tf32_kernel`` in 3xTF32 (each operand split into a TF32
+big and small part, each product as three ``mma.sync.m16n8k8.tf32``: near
+fp32 accuracy), 8 warps of 16 rows, 32-key K/V tiles in a 3-tile
+``cp.async`` ring.  See the source note there.
 
 A CPU tensor takes the plain PyTorch version below, with the reference's
 own split (``repro/kernels/ops.py:168-177``): the chunked form when

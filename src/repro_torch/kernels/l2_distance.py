@@ -106,6 +106,11 @@ def pairwise_distance(q, x, *, kernel: str = "l2"):
     return out
 
 
+def l2_distance(q, x, **kw):
+    """Back-compat wrapper: squared-L2 form of ``pairwise_distance``."""
+    return pairwise_distance(q, x, kernel="l2", **kw)
+
+
 def pairwise_distance_sq8(qs, qn, codes, cn, *, kernel: str = "l2"):
     """Pairwise distances to an int8 corpus: qs (nq, d) f32 pre-scaled
     queries, qn (nq,) f32 query norms, codes (nx, d) int8, cn (nx,) f32

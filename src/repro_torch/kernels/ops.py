@@ -34,6 +34,11 @@ def pairwise_distance(q: torch.Tensor, x: torch.Tensor,
                                  kernel=met.kernel)
 
 
+def l2_distance(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared L2: (nq, d), (nx, d) -> (nq, nx) f32."""
+    return pairwise_distance(q, x, "l2")
+
+
 def _defaults(u, b, k, cached, mask):
     if cached is None:
         cached = torch.zeros((b, k), dtype=torch.float32, device=u.device)

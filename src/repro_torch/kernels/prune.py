@@ -8,16 +8,26 @@ each row, over its L candidates ascending by distance,
   acc_j  = proc_j & ~any_w(accepted[w] & may_dominate[j, w])
   count += acc_j
 
-which is a chain of L dependent steps.  The CUDA kernel is
-``csrc/prune.cu::prune_recurrence_kernel``: one warp per row, the
-per-candidate state (valid, dominated, processed, accepted) bitmaps in
-registers spread over the lanes, the loop advanced by accepted
-candidates (one ``__ballot_sync`` finds the next first valid, undominated
-candidate, and the new member's ``may_dominate`` column, prefetched into
-L1, updates the dominated bits), and no work past ``m_limit``.  It reads
-of ``may_dominate`` only the entries the recurrence consults.  The work
-is boolean, so it equals the plain loop (``ref.prune_recurrence_ref``)
-bit for bit.
+which is a chain of L dependent steps.  The CUDA kernels are in
+``csrc/prune.cu``; the entry point picks one by L (the same boundary as
+``SMEM_MAX_L`` here):
+
+- L <= 1024: ``prune_recurrence_smem_kernel``.  A block of four warps takes
+  one to four consecutive rows (1 at L = 128, 4 at L = 48), reads their
+  ``may_dominate`` and ``valid`` bytes and ``m_limit`` with every load in
+  flight together, and packs the bytes into bits in shared memory; then
+  one warp a row runs the recurrence 32 candidates (a chunk) at a time: a
+  chunk's candidates are checked against the earlier chunks' members (a
+  row's mask word ANDed with their bits), then the chunk's own members
+  follow one by one from warp-uniform words (the first candidate left is
+  the next member; one ``__ballot_sync`` drops those it dominates), with no
+  work past ``m_limit``.
+- 1024 < L <= 8192: ``prune_recurrence_kernel``, the first body: one warp a
+  row, the state in register bitmaps, each member's ``may_dominate``
+  column read from global memory (prefetched into L1).
+
+The work is boolean, so both equal the plain loop
+(``ref.prune_recurrence_ref``) bit for bit.
 
 A CPU tensor takes the plain loop; a CUDA tensor launches the kernel or
 raises.  ``LAUNCHES`` counts the kernel's launches.
@@ -33,6 +43,8 @@ from repro_torch.kernels import ref
 
 LAUNCHES = 0
 MAX_L = 8192        # csrc/prune.cu's PR_MAX_L: eight bitmap words a lane
+SMEM_MAX_L = 1024   # csrc/prune.cu's PR_SMEM_MAX_L: the shared-memory body's
+                    # largest L; above it, the register body
 
 
 def prune_recurrence_plain(valid, may_dominate, m_limit):

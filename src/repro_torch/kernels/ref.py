@@ -29,6 +29,11 @@ def pairwise_distance_ref(q: torch.Tensor, x: torch.Tensor,
     return torch.clamp_min(qn + xn - 2.0 * cross, 0.0)
 
 
+def l2_distance_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Back-compat wrapper: squared-L2 form of ``pairwise_distance_ref``."""
+    return pairwise_distance_ref(q, x, "l2")
+
+
 def gather_distance_ref(u: torch.Tensor, c: torch.Tensor,
                         cached: torch.Tensor | None = None,
                         mask: torch.Tensor | None = None,

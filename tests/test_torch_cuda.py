@@ -366,6 +366,47 @@ def test_prune_kernel_matches_plain(card, L, b, limit):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _offset(t, by: int = 1):
+    """t's values in a contiguous tensor whose storage starts ``by``
+    elements past an aligned allocation."""
+    flat = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    out = flat[by:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("L", [31, 32, 33, 1024, 1025])
+@pytest.mark.parametrize("limit", ["zero", "early", "never"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_prune_kernel_word_and_body_edges(card, L, limit, aligned):
+    """Both sides of each 32-bit word edge and of the shared-memory body's
+    largest L (1024; 1025 takes the register body), with m_limit 0, rows
+    with no valid candidate, b a multiple of no block's row count, and the
+    inputs at 1-byte offsets (the bodies' byte-load packing)."""
+    from repro_torch.kernels import prune as prk
+    assert prk.SMEM_MAX_L == 1024
+    b = 5
+    gen = torch.Generator(device=card).manual_seed(L)
+    valid = torch.rand((b, L), generator=gen, device=card) < 0.8
+    valid[1] = False
+    md = torch.rand((b, L, L), generator=gen, device=card) < 0.05
+    lim = {"zero": torch.zeros(b, device=card),
+           "early": torch.randint(1, 4, (b,), generator=gen, device=card),
+           "never": torch.full((b,), L + 1, device=card)}[limit].to(
+               torch.int32)
+    if not aligned:
+        valid, md = _offset(valid), _offset(md)
+        assert valid.data_ptr() % 16 and md.data_ptr() % 16
+    before = prk.LAUNCHES
+    got = prk.prune_recurrence(valid, md, lim)
+    assert prk.LAUNCHES == before + 1
+    want = prk.prune_recurrence_plain(valid, md, lim)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not got[0][1].any()
+    if limit == "zero":
+        assert not got[0].any() and not got[1].any()
+
+
 def _fused_inputs():
     from repro_torch.core import vamana
     data = _data((600, 16), True, 8, torch.device("cpu"))
@@ -569,6 +610,22 @@ def test_flash_kernel_long_keys_bf16(card):
         torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
 
 
+def test_flash_kernel_long_keys_fp32(card):
+    """dh=224 fp32 over 2100 keys (the plain side takes the chunked form),
+    local and global layers as gemma2 runs them."""
+    from repro_torch.kernels import flash_attention as fa
+    r = np.random.default_rng(225)
+    q, k, v = (torch.from_numpy(r.normal(size=(1, 4, 2100, 224)).astype(
+        np.float32)).to(card) for _ in range(3))
+    for window in (512, 0):
+        kw = dict(causal=True, window=window, softcap=50.0)
+        before = fa.LAUNCHES
+        got = fa.flash_attention(q, k, v, **kw)
+        assert fa.LAUNCHES == before + 1
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
 # bf16 edges of the tensor-core kernel's tiling (128 query rows a block,
 # 64-key tiles): sk not a multiple of the key tile at dh 224, q_offset with
 # a window (the window's start inside a tile, several blocks), and keys
@@ -604,6 +661,31 @@ def test_flash_kernel_bf16_edges(card, edge):
     assert (edge == "masked_rows") == bool(empty.any())
     assert bool((got[:, :, empty.to(card)] == 0).all())
     assert bool((got[:, :, ~empty.to(card)] != 0).any(dim=-1).all())
+
+
+@pytest.mark.parametrize("edge", list(FA_EDGES))
+@pytest.mark.parametrize("dh", [224, 50])
+def test_flash_kernel_fp32_edges(card, edge, dh):
+    """The fp32 body's tiling (128 query rows a block, 32-key tiles): sq
+    and sk multiples of neither, offsets and windows inside a tile, rows
+    whose window holds no key; dh 50 takes the element copies."""
+    from repro_torch.kernels import flash_attention as fa
+    c = FA_EDGES[edge]
+    r = np.random.default_rng(len(edge) + dh)
+    q, k, v = (torch.from_numpy(r.normal(size=(1, 3, n, dh)).astype(
+        np.float32)).to(card) for n in (c["sq"], c["sk"], c["sk"]))
+    kw = dict(causal=c["causal"], window=c["w"], softcap=c["cap"],
+              q_offset=c["off"])
+    assert c["sq"] % 128 and c["sk"] % 32
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES == before + 1
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+    qpos = c["off"] + np.arange(c["sq"])
+    empty = torch.from_numpy(qpos - c["w"] + 1 >= c["sk"]) if c["w"] else \
+        torch.zeros(c["sq"], dtype=torch.bool)
+    assert bool((got[:, :, empty.to(card)] == 0).all())
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(card):

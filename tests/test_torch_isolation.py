@@ -106,7 +106,11 @@ def test_prune_source_defines_the_wrapper_entry_point():
     wrapper = pathlib.Path(prk.__file__).read_text()
     assert "int prune_recurrence(" in cu
     assert "prune_recurrence_kernel<NW><<<" in cu
+    assert "prune_recurrence_smem_kernel<<<" in cu
     assert "__ballot_sync" in cu
+    # the entry point and the wrapper split L between the two bodies alike
+    assert f"constexpr int PR_SMEM_MAX_L = {prk.SMEM_MAX_L};" in cu
+    assert f"constexpr int PR_MAX_L = {prk.MAX_L};" in cu
     assert '_build.load("prune")' in wrapper and "LAUNCHES += 1" in wrapper
     assert isinstance(prk.LAUNCHES, int)
     assert "_pr.prune_recurrence(" in pathlib.Path(ops.__file__).read_text()
@@ -120,12 +124,18 @@ def test_flash_attention_source_defines_the_wrapper_entry_points():
     from repro_torch.kernels import flash_attention
     cu = (PKG / "kernels" / "csrc" / "flash_attention.cu").read_text()
     wrapper = pathlib.Path(flash_attention.__file__).read_text()
-    assert "flash_attention_kernel" in cu
-    # bf16 reaches only the tensor-core body, fp32 only the SIMT one
+    assert "flash_attention_tf32_kernel" in cu
+    # bf16 reaches only the wgmma body, fp32 only the 3xTF32 mma.sync one;
+    # the SIMT fp32 body is gone
     bf16_entry = cu[cu.index("int flash_attention_bf16("):]
-    assert "launch_wgmma<" in bf16_entry
-    assert "flash_attention_kernel<<<" not in bf16_entry
+    bf16_entry = bf16_entry[:bf16_entry.index("\n}\n")]
+    f32_entry = cu[cu.index("int flash_attention_f32("):]
+    f32_entry = f32_entry[:f32_entry.index("\n}\n")]
+    assert "launch_wgmma<" in bf16_entry and "launch_tf32<" not in bf16_entry
+    assert "launch_tf32<" in f32_entry and "launch_wgmma<" not in f32_entry
+    assert "flash_attention_kernel" not in cu
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in cu
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in cu
     assert "cp.async.bulk.tensor.3d" in cu
     assert set(flash_attention._ENTRIES.values()) == {
         "flash_attention_f32", "flash_attention_bf16"}
