@@ -33,7 +33,8 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  and the int8 one at 1000 x 131072, each beside cuBLAS's
                  bare fp32 product of the same operands (``product_ms``);
                  the pairwise kernels also at tile-straddling, ragged and
-                 misaligned shapes; the gathers' device time from a CUDA
+                 misaligned shapes and at the streaming delta scan's
+                 (64, 1024, 128) and (16, 1024, 128); the gathers' device time from a CUDA
                  graph of 100 launches beside their wrapper-inclusive time
                  and the graph's own floor (a 1-element fill_); flash's
                  achieved TFLOP/s, bound share and special-function floor
@@ -161,6 +162,51 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  recall >= COSINE_RECALL_FLOOR, every shard within the
                  capacity, the gather, int8 gather and prune kernels
                  launched.
+7d. stream_exact -- the streaming mutable index card == CPU on the
+                 serving path's scale-1 integer corpus (n=2000, d=128)
+                 under l2, unsharded and S=4 chunked: the card's index
+                 crosses to the CPU by its snapshot, then the same script
+                 on both (300 inserts, 100 deletes of main rows, 20 of
+                 delta rows, a search after each step, compact()):
+                 identical pools, distances and counters after every
+                 step, attention to 1e-5, identical compacted graphs, and
+                 the card's WAL replayed on the CPU to the same pools.
+7e. stream    -- serve_sharded's index (131072 cosine keys, 8 k-means
+                 shards, sq8) as ``MutableIndex.wrap(wal_dir,
+                 delta_capacity=1024)`` behind a ``ResilientSearcher``
+                 (top_k 32, ef 128, scatter-gather, hash, W=4, block 64):
+                 a pristine pass of 256 queries, 1000 inserts
+                 (make_dataset's keys at the serving geometry, seed 2),
+                 1311 deletes (1% of the main rows), a pass of the 1000
+                 decode queries, the inserted keys as queries (routed
+                 p=1), 256 queries with shard 0 killed by a FaultPlan and
+                 256 after its revival, a ``crash`` fault recovered with
+                 ``MutableIndex.load``, compaction through the searcher
+                 and a pass of 1000, then the latency governor over 12
+                 calls of 64 queries at half the healthy per-call median.
+                 Printed: snapshot bytes and save / load seconds,
+                 inserts/s and deletes/s (fsync included), WAL bytes, the
+                 per-row against batched normalization of the inserts,
+                 delta-graph rebuilds and their seconds, per pass
+                 recall@32 against the exact top-32 of the live corpus,
+                 n_computed, hops, host syncs, QPS and attention cosine;
+                 recovery seconds (snapshot load, WAL replay),
+                 compaction seconds and shards rebuilt, captures, the
+                 governor's rungs and latencies.  Asserted: the pristine
+                 pass == retrieval_attention_batched bit for bit, no
+                 deleted id and no dead shard's id in a pool, every
+                 inserted key found first, the recovered pools,
+                 distances and counters == the pre-crash ones, the gen-0
+                 snapshot == the index, recall after the mutations >=
+                 the pristine pass's - 0.02 on the same 256 queries, and
+                 after compaction the same over the exact neighbours
+                 their shard's entry reaches (the plain recall reported,
+                 with each shard's reachable share, mean out-degree and
+                 entry before and after), every
+                 live vector once in the compacted index, the governor's
+                 first over-budget call one rung down, the pairwise, both
+                 gathers and prune launched.  The ground truth's launches are outside the
+                 counted window (path ``stream_gt``).
 8. lm_exact   -- the LM substrate on gemma2_9b's smoke config (4 layers,
                  window 32) in fp32, on the card and on the CPU: forward
                  logits of a 48-token prompt card == CPU to 1e-4,
@@ -185,10 +231,14 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  max_seq 512): 8 requests of 32-token prompts, 32 new
                  tokens each; tokens/s and ms per decode step.
 
+A ``lap`` line after each group of phases gives its wall seconds and
+the running total, and the done line repeats them.
+
 Launch counters are zeroed just before each path (main, hnsw, nsg, the
 two tune runs, the serving ground truth ``serve_gt``, serve,
-serve_sharded, and the LM phases) and read just after; every kernel of
-that path must have launched.
+serve_sharded, stream_exact, stream and its ground truth ``stream_gt``,
+and the LM phases) and read just after; every kernel of that path must
+have launched.
 
 ``--profile N`` runs only device, build and a profile of one fused
 grouped build of N points (after a first build that captures its step):
@@ -274,6 +324,12 @@ SHARD_EF = 128
 # the largest shard k-means may leave: ceil(n/S * (1 + KMEANS_CAP_SLACK))
 SHARD_CAP = -(-N_CTX * 105 // (SHARDS * 100))
 SHARD_EXACT = dict(n=2000, nq=100, shards=4, ef=64, tombstones=16)
+# stream_exact / stream: the streaming index's scripts
+STREAM_EXACT = dict(n=2000, nq=100, shards=4, inserts=300, main_deletes=100,
+                    delta_deletes=20, ef=64, params=dict(L=24, M=12,
+                                                         alpha=1.2))
+STREAM = dict(inserts=1000, delete_frac=0.01, small=256, delta_capacity=1024,
+              median_calls=3, governor_calls=12)
 # The LM cells: gemma2_9b at its full widths (d_model 3584, 16 heads of
 # 224, GQA 16:8, d_ff 14336, vocab 256000), window 4096 on the 21 local
 # layers, attention soft-cap 50, logit soft-cap 30; random weights.
@@ -700,14 +756,16 @@ def _pairwise_row(l2, ops, mlib, gen, n_corpus: int) -> dict:
     perr = 0.0
     # ragged, the main path's ground truth, NSG's KNNG blocks (1024 rows
     # and the last, shorter block) and a repair's (unreachable, n), the
-    # serving ground truth (ip), and shapes that straddle the kernel's
-    # tile on both axes or take d off its 16-deep steps
+    # serving ground truth (ip), shapes that straddle the kernel's tile on
+    # both axes or take d off its 16-deep steps, and the streaming delta
+    # scan's (a query block against the 1024 delta slots; 16 rows: the
+    # smallest block)
     shapes = [(37, 91, 50), (NQ, n_corpus, 128),
               (KNNG_BLOCK, n_corpus, 128),
               (n_corpus % KNNG_BLOCK or KNNG_BLOCK, n_corpus, 128),
               (37, n_corpus, 128), (NQ, N_CTX, 128),
               (129, 1000, 128), (257, 1000, 128), (200, 130, 100),
-              (1, 300, 4)]
+              (1, 300, 4), (BLOCK, 1024, 128), (16, 1024, 128)]
     for (a, b_, d) in dict.fromkeys(shapes):
         for integer in (False, True):
             q = _data(gen, (a, d), integer)
@@ -2315,7 +2373,7 @@ class ShardBuildWatch:
         self._saved = []
 
 
-def phase_serve_sharded(counters: dict, data: dict) -> dict:
+def phase_serve_sharded(counters: dict, data: dict) -> tuple[dict, object]:
     """The serving cell sharded: the 131072 x 128 cosine key cache in
     SHARDS k-means shards, fused Vamana (SERVE_PARAMS) per shard, sq8;
     1000 decode queries at top_k 32, hash state, W=4, block 64,
@@ -2455,7 +2513,529 @@ def phase_serve_sharded(counters: dict, data: dict) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serve_sharded path")
+    return launches, idx
+
+
+def _stream_dir(name: str) -> str:
+    """A fresh directory for a streaming index's WAL and snapshots, under
+    the checkout's gitignored ``build/``."""
+    import shutil
+    path = os.path.join(HERE, "build", "stream", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _dir_bytes(path: str, prefix: str = "") -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path) if f.startswith(prefix))
+
+
+def phase_stream_exact(counters: dict) -> dict:
+    """The streaming index card == CPU on the scale-1 integer serving
+    corpus under l2, unsharded and S=4 chunked: the card's index crosses
+    to the CPU by its snapshot, then the same script runs on both (300
+    inserts, 100 deletes of main rows, 20 of delta rows, a search after
+    each step, compact()): identical pools, distances and counters after
+    every step, attention to 1e-5, the same graphs after compaction, and
+    the card's WAL replayed on the CPU to the same pools."""
+    import numpy as np
+    import torch
+    from repro_torch.core import vamana
+    from repro_torch.serve import resilience, retrieval, streaming
+    cfg = STREAM_EXACT
+    t_phase = time.perf_counter()
+    keys, values, q = _serve_int_data(cfg["n"], cfg["nq"])
+    r = np.random.default_rng(7)
+    new_keys = r.integers(-127, 128, (cfg["inserts"], 128)).astype(
+        np.float32)
+    p = vamana.VamanaParams(**cfg["params"])
+    kw = dict(top_k=TOP_K, ef=cfg["ef"], block_size=BLOCK,
+              visited_impl="hash", expand_width=4)
+    zero_counts(counters)
+    rows = {}
+    for shards in (1, cfg["shards"]):
+        name = "unsharded" if shards == 1 else f"chunked_{shards}"
+        t0 = time.perf_counter()
+        card = retrieval.build_index(keys, values, p, metric="l2",
+                                     num_shards=shards, assign="chunked",
+                                     build_impl="fused")
+        snap = _stream_dir(f"exact_{name}_snap")
+        resilience.save_index(card, snap)
+        cpu = resilience.load_index(snap, device="cpu")
+        mi = {"cuda": streaming.MutableIndex.wrap(
+                  card, wal_dir=_stream_dir(f"exact_{name}_wal")),
+              "cpu": streaming.MutableIndex(cpu)}
+        steps = {}
+
+        def step(what):
+            (o_g, r_g), (o_c, r_c) = (mi[d].attention_batched(q, **kw)
+                                      for d in ("cuda", "cpu"))
+            same = _identical(r_g, r_c)
+            err = float((o_g.cpu() - o_c).abs().max())
+            steps[what] = dict(identical=same, attention_max_abs_err=err,
+                               n_computed=int(r_g.n_computed),
+                               hops=int(r_g.hops))
+            if not all(same.values()) or err > 1e-5:
+                raise AssertionError(f"stream_exact {name} {what}: card != "
+                                     f"CPU {same}, attention err {err}")
+            return r_g
+
+        step("pristine")
+        for v in new_keys:
+            if mi["cuda"].insert(v) != mi["cpu"].insert(v):
+                raise AssertionError("stream_exact: external ids differ")
+        step("inserts")
+        gone = r.choice(cfg["n"], cfg["main_deletes"], replace=False)
+        gone_d = cfg["n"] + r.choice(cfg["inserts"], cfg["delta_deletes"],
+                                     replace=False)
+        for e in gone:
+            for m in mi.values():
+                m.delete(int(e))
+        step("main_deletes")
+        for e in gone_d:
+            for m in mi.values():
+                m.delete(int(e))
+        res = step("delta_deletes")
+        if np.isin(res.pool_ids.cpu().numpy(),
+                   np.concatenate([gone, gone_d])).any():
+            raise AssertionError("stream_exact: a deleted id in a pool")
+        replayed = streaming.MutableIndex.load(mi["cuda"].wal_dir,
+                                               device="cpu")
+        wal_same = _identical(replayed.attention_batched(q, **kw)[1], res)
+        if not all(wal_same.values()):
+            raise AssertionError(f"stream_exact {name}: the card's WAL "
+                                 f"replayed on the CPU differs {wal_same}")
+        for m in mi.values():
+            m.compact()
+        a, b = (mi[d].main for d in ("cuda", "cpu"))
+        graphs = (torch.equal(a.graph_ids.cpu(), b.graph_ids)
+                  if shards == 1 else
+                  all(torch.equal(getattr(a.shards, f).cpu(),
+                                  getattr(b.shards, f))
+                      for f in ("ids", "data", "global_ids", "entries",
+                                "counts")))
+        if not graphs or a.entry != b.entry:
+            raise AssertionError(f"stream_exact {name}: compacted graphs "
+                                 f"differ card / CPU")
+        step("compacted")
+        rows[name] = dict(steps=steps, wal_replay_identical=wal_same,
+                          compacted_graphs_identical=graphs,
+                          delta_rebuilds=mi["cuda"].delta_rebuilds,
+                          seconds=time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    emit("stream_exact", n=cfg["n"], d=128, nq=cfg["nq"], metric="l2",
+         top_k=TOP_K, ef=cfg["ef"], block_size=BLOCK, visited_impl="hash",
+         expand_width=4, params=cfg["params"], build_impl="fused",
+         inserts=cfg["inserts"], main_deletes=cfg["main_deletes"],
+         delta_deletes=cfg["delta_deletes"], runs=rows, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    for name in ("gather_distance", "pairwise_distance",
+                 "prune_recurrence"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"stream_exact path")
     return launches
+
+
+def reachable(ids, count: int, entry: int):
+    """Bool mask of a graph's first ``count`` rows that ``entry`` reaches
+    along its out-edges (a breadth-first walk on the graph's device)."""
+    import torch
+    adj = ids[:count].long()
+    seen = torch.zeros(count, dtype=torch.bool, device=adj.device)
+    seen[entry] = True
+    frontier = seen.clone()
+    while True:
+        nb = adj[frontier]
+        new = torch.zeros_like(seen)
+        new[nb[nb >= 0]] = True
+        new &= ~seen
+        if not bool(new.any()):
+            return seen
+        seen |= new
+        frontier = new
+
+
+def shard_structure(sg, ext_of_row, n_ext: int,
+                    batch_size: int) -> tuple[list, object]:
+    """Per shard of ``sg``: mean out-degree, the share of its rows its
+    entry reaches, the entry's out-degree and its insertion batch; and a
+    bool array over external ids (row r holds ext_of_row[r]) of the rows
+    their shard's entry reaches."""
+    import numpy as np
+    deg = (sg.ids >= 0).sum(-1)
+    gids = sg.global_ids.cpu().numpy()
+    ext_of_row = np.asarray(ext_of_row)
+    reach_ext = np.zeros(n_ext, bool)
+    rows = []
+    for s, c in enumerate(sg.counts.tolist()):
+        e = int(sg.entries[s])
+        seen = reachable(sg.ids[s], c, e).cpu().numpy()
+        reach_ext[ext_of_row[gids[s, :c][seen]]] = True
+        rows.append(dict(mean_degree=float(deg[s, :c].float().mean()),
+                         reachable=float(seen.mean()),
+                         entry_out_degree=int(deg[s, e]),
+                         entry_batch=e // batch_size,
+                         batches=-(-c // batch_size)))
+    return rows, reach_ext
+
+
+def phase_stream(counters: dict, data: dict, idx) -> tuple[dict, dict]:
+    """The serving cell's index (SHARDS k-means shards, fused Vamana, sq8,
+    cosine) as a streaming index: MutableIndex.wrap(wal_dir,
+    delta_capacity=1024) behind a ResilientSearcher (top_k 32, ef 128,
+    scatter-gather, hash state, W=4, block 64).  The script: a pristine
+    pass of 256 queries; 1000 inserts (make_dataset's keys at the serving
+    geometry, seed 2); 1311 deletes (1% of the main rows); a pass of the
+    1000 decode queries; the 1000 inserted keys as queries (routed p=1:
+    the delta's search does not depend on the main routing); 256 queries with
+    shard 0 killed by a FaultPlan; 256 queries after its revival; a
+    ``crash`` fault, MutableIndex.load and the same 256; compact, a pass
+    of 1000; and a governor run of 12 calls of 64 queries with
+    deadline_ms at half the healthy per-call median.  Recall@32 is against
+    the exact top-32 of the live corpus (pairwise kernel + stable sort,
+    cosine), computed after the counted window as path stream_gt.  The
+    mutated pass's recall must stay within 0.02 of the pristine pass's on
+    the same 256 queries.  The compacted pass's recall over the exact
+    neighbours their shard's entry reaches must stay within 0.02 of the
+    pristine pass's (its plain recall is reported, beside each shard's
+    reach, degree and entry before and after), and the compacted index
+    must hold every live vector once."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build, knng, search
+    from repro_torch.core import eval as evallib
+    from repro_torch.core import metric as metric_lib
+    from repro_torch.core.tuner import estimator
+    from repro_torch.serve import engine, resilience, retrieval, streaming
+    cfg = STREAM
+    t_phase = time.perf_counter()
+    queries = data["queries"]
+    n, dh = idx.keys.shape
+    dev = idx.keys.device
+    new_keys, _ = estimator.make_dataset(cfg["inserts"], dh, 0, seed=2,
+                                         n_clusters=N_CLUSTERS,
+                                         spread=SPREAD, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    new_vals = torch.randn((cfg["inserts"], dh), generator=gen, device=dev)
+    new_np, new_vals_np = new_keys.cpu().numpy(), new_vals.cpu().numpy()
+    r = np.random.default_rng(3)
+    gone = r.choice(n, int(round(cfg["delete_frac"] * n)), replace=False)
+    knobs = engine.RetrievalKnobs(top_k=TOP_K, ef=SHARD_EF,
+                                  num_shards=SHARDS, assign="kmeans",
+                                  block_size=BLOCK, visited_impl="hash",
+                                  expand_width=4, quantize="sq8",
+                                  build_impl="fused")
+    alive = np.ones(n + cfg["inserts"], bool)
+    alive[n:] = False
+    wal_dir = _stream_dir("serve")
+    small = queries[:cfg["small"]]
+    zero_counts(counters)
+    search.HOST_SYNCS = 0
+    capture_s = build.CAPTURE_SECONDS
+    passes = {}
+    rebuild_s = []
+    with ShardBuildWatch() as watch:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mi = streaming.MutableIndex.wrap(
+            idx, wal_dir=wal_dir, delta_capacity=cfg["delta_capacity"])
+        save_s = time.perf_counter() - t0
+        snap_bytes = _dir_bytes(wal_dir, "index-g0.snapshot")
+        t0 = time.perf_counter()
+        loaded = resilience.load_index(wal_dir, tag="index-g0")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        fields = [f.name for f in dataclasses.fields(idx.shards)]
+        same_snapshot = (
+            all(torch.equal(getattr(loaded, f), getattr(idx, f))
+                for f in ("keys", "values"))
+            and all(getattr(idx.shards, f) is None
+                    or torch.equal(getattr(loaded.shards, f),
+                                   getattr(idx.shards, f)) for f in fields)
+            and loaded.entry == idx.entry
+            and loaded.provenance == idx.provenance)
+        del loaded
+        if not same_snapshot:
+            raise AssertionError("stream: the gen-0 snapshot != the index")
+
+        def timed_rebuild(m):
+            inner = m._rebuild_delta_graph
+
+            def run(k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                inner(k)
+                torch.cuda.synchronize()
+                rebuild_s.append(time.perf_counter() - t)
+            m._rebuild_delta_graph = run
+
+        timed_rebuild(mi)
+        plan = resilience.FaultPlan([
+            resilience.Fault("kill", 0, at_call=3),
+            resilience.Fault("revive", 0, at_call=4),
+            resilience.Fault("crash", 0, at_call=5)])
+        rs = resilience.ResilientSearcher(mi, knobs, plan=plan)
+
+        def run_pass(name, searcher, qs, **over):
+            syncs = search.HOST_SYNCS
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, res = searcher.search(qs, **over)
+            dt = time.perf_counter() - t
+            passes[name] = dict(
+                queries=qs, alive=alive.copy(), res=res, out=out,
+                host_syncs=search.HOST_SYNCS - syncs, seconds=dt,
+                qps=qs.shape[0] / dt)
+            return res
+
+        run_pass("pristine", rs, small)
+        t0 = time.perf_counter()
+        exts = [mi.insert(new_np[i], new_vals_np[i])
+                for i in range(cfg["inserts"])]
+        insert_s = time.perf_counter() - t0
+        if exts != list(range(n, n + cfg["inserts"])):
+            raise AssertionError("stream: unexpected external ids")
+        # each insert was prepared (normalized) alone on the card;
+        # compaction prepares every key in one batch
+        per_row = mi._d_search[:cfg["inserts"]]
+        batched = metric_lib.resolve(idx.metric).prepare(
+            new_keys).cpu().numpy()
+        prepare = dict(rows_differ=int((per_row != batched).any(1).sum()),
+                       max_abs_diff=float(np.abs(per_row - batched).max()))
+        alive[n:] = True
+        t0 = time.perf_counter()
+        for e in gone:
+            mi.delete(int(e))
+        delete_s = time.perf_counter() - t0
+        alive[gone] = False
+        wal_bytes = _dir_bytes(wal_dir, "index-g0.wal")
+        run_pass("mutated", rs, queries)
+        found = run_pass("inserted_keys", rs, new_keys, routed_shards=1)
+        run_pass("shard_0_dead", rs, small)
+        before = run_pass("pre_crash", rs, small)
+        try:
+            rs.search(small)
+        except resilience.InjectedCrash:
+            crashed = True
+        else:
+            crashed = False
+        if not crashed:
+            raise AssertionError("stream: the crash fault did not fire")
+        del rs, mi
+        t0 = time.perf_counter()
+        mi = streaming.MutableIndex.load(
+            wal_dir, delta_capacity=cfg["delta_capacity"])
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        rs = resilience.ResilientSearcher(mi, knobs)
+        after = run_pass("recovered", rs, small)
+        recovered = _identical(after, before)
+        timed_rebuild(mi)
+        old_sg = mi.main.shards
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mi.compact(searcher=rs)
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        new_sg = mi.main.shards
+        # a rebuilt shard is one whose adjacency changed
+        built = [int(c) for s, (b, c) in enumerate(zip(
+            old_sg.counts.tolist(), new_sg.counts.tolist()))
+            if b != c or not torch.equal(old_sg.ids[s, :b],
+                                         new_sg.ids[s, :c])]
+        rows = new_sg.global_ids[new_sg.global_ids >= 0].cpu().numpy()
+        compacted = dict(
+            rows_once=bool(np.array_equal(np.sort(rows),
+                                          np.arange(mi.n_main))),
+            ext_are_live=bool(np.array_equal(np.sort(mi.main_ext),
+                                             np.flatnonzero(alive))),
+            pristine=mi.pristine and rs.index is mi)
+        new_ext = mi.main_ext.copy()
+        run_pass("compacted", rs, queries)
+        lat = []
+        for i in range(cfg["median_calls"]):
+            qs = queries[i * BLOCK:(i + 1) * BLOCK]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rs.search(qs)
+            lat.append(time.perf_counter() - t)
+        median = float(np.median(lat))
+        gov = resilience.ResilientSearcher(
+            mi, dataclasses.replace(knobs, deadline_ms=median / 2 * 1e3))
+        gov_rows = []
+        for i in range(cfg["governor_calls"]):
+            qs = queries[i * BLOCK:(i + 1) * BLOCK]
+            rung = gov.governor.level
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, res = gov.search(qs)
+            gov_rows.append(dict(rung=rung, ef=gov.governor.ladder[rung].ef,
+                                 routed_shards=gov.governor.ladder[
+                                     rung].routed_shards,
+                                 seconds=time.perf_counter() - t,
+                                 ewma_s=gov.governor.ewma_s,
+                                 n_computed=int(res.n_computed)))
+        torch.cuda.synchronize()
+    launches = read_counts(counters)
+    captures = dict(captures=watch.captures,
+                    capture_s=build.CAPTURE_SECONDS - capture_s)
+    # outside the counted window: the pristine pass against
+    # retrieval_attention_batched on the wrapped index, then the yardsticks
+    # (exact top-32 of each pass's live corpus, exact attention over it)
+    out0, res0 = retrieval.retrieval_attention_batched(
+        idx, small, **knobs.batched_kwargs())
+    pristine = _identical(passes["pristine"]["res"], res0)
+    pristine["out"] = torch.equal(passes["pristine"]["out"], out0)
+    zero_counts(counters)
+    # the rows each shard's entry reaches, before and after compaction
+    # (the delta is searched apart from the shards: all of it counts)
+    n_ext = n + cfg["inserts"]
+    batch = idx.provenance["batch_size"]
+    before_shards, reach_before = shard_structure(old_sg, np.arange(n),
+                                                  n_ext, batch)
+    reach_before[n:] = True
+    after_shards, reach_after = shard_structure(new_sg, new_ext, n_ext,
+                                                batch)
+    del old_sg, new_sg
+    all_keys = torch.cat([idx.keys, new_keys])
+    all_vals = torch.cat([idx.values, new_vals])
+    rows = []
+    for name, rec in passes.items():
+        if name == "inserted_keys":
+            continue
+        qs, res, out = rec["queries"], rec["res"], rec["out"]
+        live = torch.from_numpy(np.flatnonzero(rec["alive"])).to(dev)
+        gt_rows, _ = knng.exact_knn(all_keys[live], qs, TOP_K,
+                                    metric="cosine")
+        gt = live[gt_rows.long()].to(torch.int32)
+        exact = retrieval.exact_attention(all_keys[live], all_vals[live], qs)
+        cos = torch.nn.functional.cosine_similarity(out, exact, dim=-1)
+        ids = res.pool_ids
+        ids_np = ids.cpu().numpy()
+        k = cfg["small"]
+        # recall over the exact neighbours their shard's entry reaches
+        ok = torch.from_numpy(reach_after if name == "compacted"
+                              else reach_before).to(dev)[gt[:k].long()]
+        hit = (ids[:k, :, None] == gt[:k, None, :]).any(1) & ok
+        has = ok.sum(1) > 0
+        row = dict(run=name, nq=int(qs.shape[0]),
+                   recall=evallib.recall_at_k(ids, gt),
+                   recall_first_256=evallib.recall_at_k(ids[:k], gt[:k]),
+                   gt_reachable_share_first_256=float(ok.float().mean()),
+                   reachable_recall_first_256=float(
+                       (hit.sum(1)[has] / ok.sum(1)[has]).mean()),
+                   n_computed=int(res.n_computed), n_fresh=int(res.n_fresh),
+                   hops=int(res.hops), host_syncs=rec["host_syncs"],
+                   qps=rec["qps"], seconds=rec["seconds"],
+                   attention_cosine_mean=float(cos.mean()),
+                   finite=bool(torch.isfinite(out).all()),
+                   shape_ok=tuple(ids.shape) == (qs.shape[0], TOP_K),
+                   tombstoned_in_pool=bool(np.isin(
+                       ids_np, np.flatnonzero(~rec["alive"])).any()))
+        if name == "shard_0_dead":
+            part0 = idx.shards.global_ids[0].cpu().numpy()
+            row["dead_shard_ids_in_pool"] = bool(np.isin(
+                ids_np, part0[part0 >= 0]).any())
+        rows.append(row)
+    torch.cuda.synchronize()
+    gt_launches = read_counts(counters)
+    by = {r["run"]: r for r in rows}
+    found_first = found.pool_ids[:, 0].cpu().numpy()
+    inserted_found = dict(
+        all_first=bool(np.array_equal(found_first, np.asarray(exts))),
+        missed=int((found_first != np.asarray(exts)).sum()),
+        dist_max=float(found.pool_dist[:, 0].abs().max()))
+    # The builder (the reference's, bit for bit) clears a shard entry's
+    # out-list at the entry's own insertion (its search drops its own id),
+    # so a medoid inserted late in a shard's pass reaches only part of the
+    # shard, and which shards that hits moves with every rebuild (PERF.md
+    # §6).  So compaction is held to the pristine recall over the exact
+    # neighbours the entries reach; the plain recall is reported.
+    by["compacted"]["recall_floor_holds"] = (
+        by["compacted"]["recall_first_256"]
+        >= by["pristine"]["recall_first_256"] - 0.02)
+    budget = median / 2
+    over = [i for i, g in enumerate(gov_rows) if g["ewma_s"] > budget]
+    downshift = bool(over) and over[0] + 1 < len(gov_rows) and \
+        gov_rows[over[0] + 1]["rung"] == gov_rows[over[0]]["rung"] + 1
+    emit("stream", metric="cosine", n_ctx=n, dh=dh, shards=SHARDS,
+         assign="kmeans", quantize="sq8", top_k=TOP_K, ef=SHARD_EF,
+         block_size=BLOCK, visited_impl="hash", expand_width=4,
+         delta_capacity=cfg["delta_capacity"], inserts=cfg["inserts"],
+         deletes=int(gone.size),
+         snapshot=dict(gen0_bytes=snap_bytes, save_s=save_s,
+                       load_s=load_s, identical=same_snapshot),
+         mutations=dict(inserts_per_s=cfg["inserts"] / insert_s,
+                        deletes_per_s=gone.size / delete_s,
+                        insert_s=insert_s, delete_s=delete_s,
+                        wal_bytes=wal_bytes, fsync_each=True,
+                        per_row_vs_batched_prepare=prepare),
+         delta_rebuilds=dict(count=len(rebuild_s), seconds=rebuild_s),
+         pristine_equals_retrieval_attention_batched=pristine,
+         runs=rows, inserted_keys_found=inserted_found,
+         recovery=dict(seconds=recover_s, snapshot_load_s=load_s,
+                       wal_replay_s=recover_s - load_s,
+                       identical_to_pre_crash=recovered),
+         compaction=dict(seconds=compact_s, shards_rebuilt=len(built),
+                         rebuilt_sizes=built, generation=mi.gen,
+                         shards_before=before_shards,
+                         shards_after=after_shards, **compacted),
+         build_steps=captures, shard_build_s=watch.shard_build_s,
+         governor=dict(median_call_s=median, median_calls=lat,
+                       deadline_ms=budget * 1e3, calls=gov_rows,
+                       first_over_budget_call=over[0] if over else None,
+                       downshifted_one_rung=downshift,
+                       ladder=[dict(ef=k.ef, routed_shards=k.routed_shards,
+                                    expand_width=k.expand_width)
+                               for k in gov.governor.ladder]),
+         launches=launches, ground_truth_launches=gt_launches,
+         seconds=time.perf_counter() - t_phase,
+         reduced="one head of one layer; random values; synthetic "
+                 "clustered keys")
+    import shutil
+    shutil.rmtree(os.path.join(HERE, "build", "stream"), ignore_errors=True)
+    for row in rows:
+        if row["tombstoned_in_pool"] or not (row["finite"]
+                                             and row["shape_ok"]):
+            raise AssertionError(f"stream {row['run']}: a tombstoned id in "
+                                 f"a pool or a bad output {row}")
+    if by["shard_0_dead"]["dead_shard_ids_in_pool"]:
+        raise AssertionError("stream: a pool holds the dead shard's ids")
+    if not all(recovered.values()):
+        raise AssertionError(f"stream: recovered != pre-crash {recovered}")
+    if not inserted_found["all_first"]:
+        raise AssertionError(f"stream: {inserted_found['missed']} inserted "
+                             f"keys not found first")
+    if not (compacted["rows_once"] and compacted["ext_are_live"]
+            and compacted["pristine"]):
+        raise AssertionError(f"stream: the compacted index does not hold "
+                             f"each live vector once {compacted}")
+    base = by["pristine"]["recall_first_256"]
+    if by["mutated"]["recall_first_256"] < base - 0.02:
+        raise AssertionError(f"stream mutated: recall "
+                             f"{by['mutated']['recall_first_256']} < "
+                             f"pristine {base} - 0.02")
+    base = by["pristine"]["reachable_recall_first_256"]
+    if by["compacted"]["reachable_recall_first_256"] < base - 0.02:
+        raise AssertionError(
+            f"stream compacted: recall over the reachable neighbours "
+            f"{by['compacted']['reachable_recall_first_256']} < pristine "
+            f"{base} - 0.02")
+    if not downshift:
+        raise AssertionError(f"stream: the governor's first over-budget "
+                             f"call did not downshift one rung {gov_rows}")
+    if not all(pristine.values()):
+        raise AssertionError(f"stream: the pristine pass != "
+                             f"retrieval_attention_batched {pristine}")
+    for name in ("gather_distance", "gather_distance_sq8",
+                 "pairwise_distance", "prune_recurrence"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"stream path")
+    return launches, gt_launches
 
 
 def device_time(prof, top: int = 8) -> tuple[float, dict, int]:
@@ -2836,18 +3416,36 @@ def main() -> int:
                 "flash_attention": (flash_attention, "LAUNCHES"),
                 "prune_recurrence": (prune, "LAUNCHES")}
     t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(name: str) -> None:
+        """Wall seconds since the previous lap, printed at once (a run cut
+        by its time limit still shows where the time went) and kept for
+        the done line."""
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+        emit("lap", name=name, seconds=laps[name],
+             total_s=now - t0)
+
     smi = phase_device()
     phase_build()
+    lap("device_build")
     if args.profile:
         phase_profile(args.profile)
         return 0
     kernels = phase_kernels(args.n)
+    lap("kernels")
     by_path = {}
     phase_exact()
+    lap("exact")
     by_path["main"], main_data = phase_main(args.n, counters)
+    lap("main")
     by_path["hnsw"] = phase_family("hnsw", HNSW_CONFIGS, main_data, counters)
     by_path["nsg"] = phase_family("nsg", NSG_CONFIGS, main_data, counters)
+    lap("hnsw_nsg")
     by_path.update(phase_tune(main_data, counters))
+    lap("tune")
     del main_data
     build.release()                  # the captured build steps
     phase_serve_exact()
@@ -2863,22 +3461,33 @@ def main() -> int:
     # in the reference as in the port (PERF.md, ROADMAP queue 3)
     by_path["serve_ip"] = phase_serve(counters, data, "ip")
     by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
+    lap("serve")
     build.release()                  # the captured build steps
     phase_shard_exact()
-    by_path["serve_sharded"] = phase_serve_sharded(counters, data)
-    del data
+    lap("shard_exact")
+    by_path["serve_sharded"], sharded = phase_serve_sharded(counters, data)
+    lap("serve_sharded")
+    build.release()                  # the captured build steps
+    by_path["stream_exact"] = phase_stream_exact(counters)
+    lap("stream_exact")
+    build.release()
+    by_path["stream"], by_path["stream_gt"] = phase_stream(counters, data,
+                                                           sharded)
+    lap("stream")
+    del data, sharded
     build.release()                  # the captured build steps
     torch.cuda.empty_cache()
     by_path["lm_exact"] = phase_lm_exact(counters)
     by_path["lm_width"] = phase_lm_width(counters)
     by_path["lm_prefill"], model = phase_lm_prefill(counters)
     by_path["lm_serve"] = phase_lm_serve(counters, model)
+    lap("lm")
     del model
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-    emit("done", seconds=time.perf_counter() - t0)
+    emit("done", seconds=time.perf_counter() - t0, phase_seconds=laps)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -131,7 +131,7 @@ def sharded_graph_from_numpy(fields: dict,
 def retrieval_index_from_numpy(graph_ids, keys, values, search_keys,
                                entry: int, params, metric: str, *,
                                quantize: str = "none", quant=None,
-                               shards=None,
+                               shards=None, provenance: dict | None = None,
                                device: "str | torch.device" = "cuda"
                                ) -> RetrievalIndex:
     """A reference index's arrays -> the port's RetrievalIndex.
@@ -140,7 +140,9 @@ def retrieval_index_from_numpy(graph_ids, keys, values, search_keys,
     ``QuantizedData`` (or any (codes, scale, norms) triple), carried over
     as it is, never re-quantized.  A sharded index passes its
     ``ShardedGraph``'s fields as ``shards`` (``sharded_graph_from_numpy``)
-    with ``graph_ids`` and ``search_keys`` None."""
+    with ``graph_ids`` and ``search_keys`` None.  ``provenance`` is the
+    build knobs' record (``serve/resilience.load_index`` reads it from a
+    snapshot's manifest)."""
     if quantize not in metric_lib.QUANTIZE_MODES:
         raise ValueError(
             f"quantize {quantize!r} not in {metric_lib.QUANTIZE_MODES}")
@@ -163,7 +165,8 @@ def retrieval_index_from_numpy(graph_ids, keys, values, search_keys,
                                               params.alpha),
         metric=metric, quantize=quantize, quant=quant,
         shards=(None if shards is None else
-                sharded_graph_from_numpy(shards, dev)))
+                sharded_graph_from_numpy(shards, dev)),
+        provenance=provenance)
 
 
 def lm_params_from_numpy(tree: dict, cfg: ArchConfig,

@@ -17,10 +17,10 @@ the host logits, cast to fp32 first (exact for bf16, so the first-index
 tie rule is unchanged).
 
 ``RetrievalKnobs`` is the one place the decode-time retrieval-attention
-search knobs live, with the reference's validation.  Attaching a retrieval
-index to the engine goes through the resilience layer, which is not ported
-yet: ``attach_retrieval``, ``retrieve`` and ``swap_retrieval_index`` raise
-``NotImplementedError`` naming ROADMAP queue 1, item 7.
+search knobs live, with the reference's validation.  ``attach_retrieval``
+puts a retrieval index behind the resilience layer
+(``serve/resilience.ResilientSearcher``); ``retrieve`` searches through it
+and ``swap_retrieval_index`` hot-swaps the index.
 """
 from __future__ import annotations
 
@@ -36,11 +36,8 @@ from repro_torch.core import graph as graph_lib
 from repro_torch.core import metric as metric_lib
 from repro_torch.core.build import BUILD_IMPLS
 from repro_torch.models import model as M
+from repro_torch.serve import resilience as resilience_lib
 from repro_torch.serve import retrieval as retrieval_lib
-
-_RESILIENCE = ("the resilience layer (serve/resilience.py) is not ported "
-               "yet: ROADMAP queue 1, item 7")
-
 
 @dataclasses.dataclass(frozen=True)
 class RetrievalKnobs:
@@ -201,13 +198,32 @@ class ServeEngine:
 
     def attach_retrieval(self, index, knobs: RetrievalKnobs | None = None,
                          **resilience_kwargs):
-        raise NotImplementedError(f"attach_retrieval: {_RESILIENCE}")
+        """Serve a retrieval index behind the resilience layer: searches
+        issued through ``retrieve`` get shard-health masking, the deadline
+        governor (armed by ``knobs.deadline_ms``) and bounded retry.
+        Returns the ResilientSearcher."""
+        self.retrieval = resilience_lib.ResilientSearcher(
+            index, knobs or RetrievalKnobs(), **resilience_kwargs)
+        return self.retrieval
 
     def retrieve(self, q, **overrides):
-        raise NotImplementedError(f"retrieve: {_RESILIENCE}")
+        """Resilient retrieval attention for decode queries ``q``."""
+        if self.retrieval is None:
+            raise ValueError(
+                "no retrieval index attached: call attach_retrieval(index) "
+                "before retrieve()")
+        return self.retrieval.search(q, **overrides)
 
     def swap_retrieval_index(self, new_index) -> None:
-        raise NotImplementedError(f"swap_retrieval_index: {_RESILIENCE}")
+        """Hot-swap the served retrieval index (a restored snapshot, or a
+        streaming.MutableIndex after compaction) without touching the
+        slots or the KV cache; shard health and the latency governor reset
+        (``ResilientSearcher.swap_index``)."""
+        if self.retrieval is None:
+            raise ValueError(
+                "no retrieval index attached: call attach_retrieval(index) "
+                "first — swap replaces an index that is being served")
+        self.retrieval.swap_index(new_index)
 
     def submit(self, req: Request):
         # Reject at submit time, not at admission: _admit's per-token

@@ -54,6 +54,8 @@ class RetrievalIndex:
     quant: metric_lib.QuantizedData | None = None   # unsharded int8 view
     shards: graph_lib.ShardedGraph | None = None    # partitioned index
                                  # (its own int8 view on shards.q*)
+    provenance: dict | None = None   # build knobs build_index recorded
+                                     # (snapshot manifests carry them)
 
     @property
     def kernel(self) -> str:
@@ -80,7 +82,8 @@ def build_index(keys, values, params: vamana_lib.VamanaParams, *,
     ``assign`` ("chunked" | "random" | "kmeans") and builds a Vamana
     subindex over each shard with the same ``params`` and ``build_impl``;
     ``entry`` is shard 0's entry as a global id, and ``graph_ids`` and
-    ``search_keys`` are None (the prepared keys live in ``shards.data``)."""
+    ``search_keys`` are None (the prepared keys live in ``shards.data``).
+    ``provenance`` records the build knobs, as the reference's does."""
     if quantize not in metric_lib.QUANTIZE_MODES:
         raise ValueError(
             f"quantize {quantize!r} not in {metric_lib.QUANTIZE_MODES}")
@@ -89,6 +92,9 @@ def build_index(keys, values, params: vamana_lib.VamanaParams, *,
     keys = as_tensor(keys, dev, torch.float32)
     values = as_tensor(values, dev, torch.float32)
     search_keys = met.prepare(keys).contiguous()
+    prov = {"build_impl": build_impl, "assign": assign, "seed": seed,
+            "batch_size": batch_size, "num_shards": num_shards,
+            "quantize": quantize}
     if num_shards != 1:
         def shard_builder(local):
             res = vamana_lib.build_vamana(
@@ -104,7 +110,7 @@ def build_index(keys, values, params: vamana_lib.VamanaParams, *,
         return RetrievalIndex(graph_ids=None, keys=keys, values=values,
                               search_keys=None, entry=entry, params=params,
                               metric=met.name, quantize=quantize,
-                              shards=shards)
+                              shards=shards, provenance=prov)
     res = vamana_lib.build_vamana(search_keys, params, seed=seed,
                                   batch_size=batch_size, metric=met.kernel,
                                   build_impl=build_impl, device=dev)
@@ -113,7 +119,7 @@ def build_index(keys, values, params: vamana_lib.VamanaParams, *,
     return RetrievalIndex(graph_ids=res.g.ids[0], keys=keys, values=values,
                           search_keys=search_keys, entry=res.entry,
                           params=params, metric=met.name, quantize=quantize,
-                          quant=quant)
+                          quant=quant, provenance=prov)
 
 
 def _attend(idx: RetrievalIndex, q: torch.Tensor, pool_ids: torch.Tensor,

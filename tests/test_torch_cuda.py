@@ -10,7 +10,8 @@ versions.  Flash attention: rtol/atol 5e-4 in fp32 (the reference's own)
 and one bf16 rounding in bf16 (rtol 2^-7, atol 1e-3): the kernel and the
 plain version start from the same bf16 inputs, accumulate in fp32 and
 round the output once.  The LM card against CPU: 1e-4 (full fp32, TF32
-off).  Sharded serving card against CPU: exact on integer keys.  The tuner's GP fit card against CPU: 1e-3 of each field's largest
+off).  Sharded serving card against CPU: exact on integer keys; the streaming
+index and its snapshots and WAL likewise.  The tuner's GP fit card against CPU: 1e-3 of each field's largest
 magnitude; its (m)EHVI scores 1e-5.
 """
 import numpy as np
@@ -320,6 +321,67 @@ def test_card_sharded_serving_equals_cpu(card, assign):
         assert int(got.n_fresh) == int(want.n_fresh), kw
         assert int(got.n_computed) == int(want.n_computed), kw
         assert int(got.hops) == int(want.hops), kw
+
+
+def _same_result(got, want, what):
+    assert torch.equal(got.pool_ids.cpu(), want.pool_ids.cpu()), what
+    assert torch.equal(got.pool_dist.cpu(), want.pool_dist.cpu()), what
+    assert int(got.n_fresh) == int(want.n_fresh), what
+    assert int(got.n_computed) == int(want.n_computed), what
+    assert int(got.hops) == int(want.hops), what
+
+
+@pytest.mark.parametrize("num_shards", [1, 4])
+def test_card_mutable_index_equals_cpu(card, num_shards, tmp_path):
+    """The streaming index on the card and on the CPU, n=2000 integer keys
+    under l2: the same pools and counters after inserts across the delta
+    graph's rebuild at 128, deletes of main and delta rows, and
+    compaction (the same graphs); the card's snapshot and WAL load on the
+    CPU to the same pools."""
+    from repro_torch.core import vamana
+    from repro_torch.serve import retrieval, streaming
+    r = np.random.default_rng(14)
+    keys = r.integers(-127, 128, (2000, 16)).astype(np.float32)
+    extra = r.integers(-127, 128, (150, 16)).astype(np.float32)
+    q = r.integers(-60, 61, (70, 16)).astype(np.float32)
+    p = vamana.VamanaParams(32, 12, 1.2)
+    kw = dict(top_k=8, ef=32, block_size=32)
+    mi = {}
+    for dev in ("cuda", "cpu"):
+        idx = retrieval.build_index(
+            keys, keys, p, metric="l2", num_shards=num_shards,
+            build_impl="fused", batch_size=128, device=dev)
+        mi[dev] = streaming.MutableIndex.wrap(
+            idx, wal_dir=str(tmp_path / dev) if dev == "cuda" else None)
+
+    def same(what):
+        got = mi["cuda"].attention_batched(q, **kw)[1]
+        want = mi["cpu"].attention_batched(q, **kw)[1]
+        _same_result(got, want, what)
+        return got
+
+    same("pristine")
+    for v in extra:
+        assert mi["cuda"].insert(v) == mi["cpu"].insert(v)
+    same("inserts")
+    for e in (3, 500, 1999, 2000, 2100):
+        for m in mi.values():
+            m.delete(e)
+    got = same("deletes")
+    back = streaming.MutableIndex.load(str(tmp_path / "cuda"), device="cpu")
+    _same_result(back.attention_batched(q, **kw)[1], got, "card WAL")
+    for m in mi.values():
+        m.compact()
+    if num_shards == 1:
+        assert torch.equal(mi["cuda"].main.graph_ids.cpu(),
+                           mi["cpu"].main.graph_ids)
+    else:
+        assert torch.equal(mi["cuda"].main.shards.ids.cpu(),
+                           mi["cpu"].main.shards.ids)
+    got = same("compacted")
+    back = streaming.MutableIndex.load(str(tmp_path / "cuda"), device="cpu")
+    assert back.gen == 1
+    _same_result(back.attention_batched(q, **kw)[1], got, "card snapshot")
 
 
 def test_card_kmeans_is_deterministic_and_balanced(card):

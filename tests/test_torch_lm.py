@@ -26,9 +26,13 @@ from repro.serve import engine as JE
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
 from repro_torch.core import convert
+from repro_torch.core import vamana as tvamana
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import model as TM
 from repro_torch.serve import engine as TE
+from repro_torch.serve import resilience as tres
+from repro_torch.serve import retrieval as tret
+from repro_torch.serve import streaming as tstream
 
 ARCHS = ["gemma2_9b", "granite_3_8b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -150,15 +154,49 @@ def test_engine_matches_reference(arch, lengths):
 
 
 def test_engine_overflow_guard_and_unported_retrieval():
+    """The prompt-overflow and device guards, and the retrieval hooks
+    (ported now): attach_retrieval puts a port index behind a
+    ResilientSearcher, retrieve serves what that searcher and
+    retrieval_attention_batched serve, swap_retrieval_index hot-swaps a
+    streaming index and resets shard health and the governor."""
     _, _, tcfg, model = _pair("granite_3_8b")
     eng = TE.ServeEngine(model, tcfg, batch_slots=2, max_seq=16)
     with pytest.raises(ValueError, match="prefill capacity"):
         eng.submit(TE.Request(rid=0, prompt=np.arange(16, dtype=np.int32)))
     eng.submit(TE.Request(rid=1, prompt=np.arange(15, dtype=np.int32)))
-    for call in (lambda: eng.attach_retrieval(None), lambda: eng.retrieve(
-            None), lambda: eng.swap_retrieval_index(None)):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    r = np.random.default_rng(4)
+    keys = r.integers(-9, 10, (200, 8)).astype(np.float32)
+    q = r.integers(-9, 10, (20, 8)).astype(np.float32)
+    for call in (lambda: eng.retrieve(q),
+                 lambda: eng.swap_retrieval_index(None)):
+        with pytest.raises(ValueError, match="no retrieval index attached"):
             call()
+    idx = tret.build_index(keys, keys, tvamana.VamanaParams(16, 8, 1.2),
+                           metric="l2", device="cpu")
+    knobs = TE.RetrievalKnobs(top_k=4, ef=8, block_size=16)
+    kw = dict(clock=lambda: 0.0, sleep=lambda s: None)
+    rs = eng.attach_retrieval(idx, knobs, **kw)
+    assert isinstance(rs, tres.ResilientSearcher) and eng.retrieval is rs
+    direct = tres.ResilientSearcher(idx, knobs, **kw)
+    plain = tret.retrieval_attention_batched(idx, q, **knobs.batched_kwargs())
+    for want_out, want in (direct.search(q), plain):
+        out, got = eng.retrieve(q)
+        assert torch.equal(got.pool_ids, want.pool_ids)
+        assert torch.equal(got.pool_dist, want.pool_dist)
+        assert int(got.n_computed) == int(want.n_computed)
+        assert torch.equal(out, want_out)
+    mi = tstream.MutableIndex(idx)
+    ext = mi.insert(q[0])
+    rs.health.kill(0)
+    eng.swap_retrieval_index(mi)
+    direct.swap_index(mi)
+    assert rs.index is mi and rs.health.n_live == 1
+    assert rs.governor.level == 0 and rs.governor.ewma_s is None
+    out, got = eng.retrieve(q)
+    want_out, want = direct.search(q)
+    assert torch.equal(got.pool_ids, want.pool_ids)
+    assert torch.equal(out, want_out)
+    assert int(got.pool_ids[0, 0]) == ext and float(got.pool_dist[0, 0]) == 0
     with pytest.raises(ValueError, match="unsupported device"):
         TE.ServeEngine(model.to("meta"), tcfg)
 
