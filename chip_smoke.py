@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    PYTHONPATH=src python3 chip_smoke.py [--n 50000]
+    PYTHONPATH=src python3 chip_smoke.py [--n 25000]
 
 Phases, each printing one JSON line; any failure ends in a non-zero exit:
 
@@ -26,10 +26,13 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  gaussian data, bit-exact cache pass-through; flash
                  attention at rtol/atol 5e-4 in fp32 (the reference's own)
                  and within one bf16 rounding in bf16 (rtol 2^-7, atol
-                 1e-3), also in fp32 at the prefill's shape; kernel, plain
+                 1e-3), also in fp32 at the prefill's shape and at every
+                 shape phases 12-16 launch (whisper's non-causal 1500 x
+                 1500 and 448 x 1500 at dh 64 among them, timed beside
+                 SDPA: ``whisper_settings``); kernel, plain
                  and library times (median of 5 timed batches, with their
                  spread) beside the bound, the fp32 pairwise kernel at
-                 both ground-truth shapes (1000 x 50k and 1000 x 131072)
+                 both ground-truth shapes (1000 x n and 1000 x 131072)
                  and the int8 one at 1000 x 131072, each beside cuBLAS's
                  bare fp32 product of the same operands (``product_ms``);
                  the pairwise kernels also at tile-straddling, ragged and
@@ -54,7 +57,7 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  geometric and random inputs, m_limit reached and not,
                  timed at both path shapes (device time in a CUDA graph)
                  beside the bytes its data needs.
-4. exact      -- an integer-coordinate corpus (n=2000, d=128, coordinates
+4. exact      -- an integer-coordinate corpus (n=1000, d=128, coordinates
                  in [-4, 4]) built with each family's 4 configs (Vamana,
                  HNSW, NSG): the fused build on the card == the per_batch
                  build on the card == the fused build on the CPU (graphs,
@@ -62,7 +65,7 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  layer); multi == single for the configs in the group's
                  degree bucket.
 5. main       -- FastPGT's estimation path at SIFT's width d=128: clustered
-                 data (n=50k by default; the paper's corpora hold 1M
+                 data (n=25k by default; the paper's corpora hold 1M
                  vectors), exact ground truth, then grouped (group_size=4,
                  ESO+EPO) and baseline (group_size=1) Vamana estimation of
                  4 configs over ef in {10, 20, 40, 80}, every build fused
@@ -81,7 +84,7 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  NSG (K, L, M), 4 configs each in the main path's degree
                  bucket, grouped and baseline fused (their per_batch
                  builds are held equal to the fused ones in exact, at
-                 n=2000, and not run here for time).  Asserted: identical
+                 n=1000, and not run here for time).  Asserted: identical
                  recall sweeps grouped / baseline, an ESO+EPO saving, best
                  recall@10 >= 0.9, no stage function called from Python
                  after capture (HNSW's eager ef=1 descent told apart), one
@@ -230,6 +233,42 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
 11. lm_serve  -- the same model behind ``ServeEngine`` (4 slots,
                  max_seq 512): 8 requests of 32-token prompts, 32 new
                  tokens each; tokens/s and ms per decode step.
+12. lm_families_exact -- all ten archs' smoke configs in fp32 (Mamba,
+                 MoE, mLSTM / sLSTM, whisper's encoder and
+                 cross-attention, llava's patches among them), the card
+                 against the CPU: forward logits (with ``enc_input`` /
+                 ``patches``) to 1e-4 (1e-3 for xlstm, ill-conditioned in
+                 fp32), teacher-forced ``decode_step`` (whisper's with
+                 ``enc_memory``) against the forward to 2e-2 at the
+                 drop-free MoE capacity, identical ``ServeEngine`` tokens
+                 for the decoder-only archs, and each arch's exact flash
+                 launch count (0 for xlstm).
+13. lm_mixers_width -- one sublayer of each new mixer at full width, fp32:
+                 jamba's Mamba (B=2, S=200: a padded second chunk) and
+                 MoE (16 experts of d_ff 14336, 128 tokens; identical
+                 expert ids, order and slots on both devices, also at a
+                 capacity factor of 0.5, where assignments drop),
+                 xlstm_350m's mLSTM and sLSTM blocks, whisper_small's
+                 decoder layer with cross-attention over 1500 frames:
+                 card against CPU to 1e-3 (the MoE's normwise to
+                 MOE_NORMWISE_TOL of its largest output, which reaches
+                 ~2e4; the same forward with TF32 products is read
+                 beside it), decode against forward to 2e-2.
+14. lm_hybrid_prefill -- jamba_v01_52b's one period group (8 layers, 13.3 B
+                 parameters) at full width in bf16, forward of 1 x 8192
+                 tokens: finite logits, exactly 1 flash launch; wall
+                 seconds, tokens/s, milliseconds by mixer (CUDA events
+                 around each attention, Mamba, MoE and MLP call), peak
+                 memory, a profiled second forward's busy share.
+15. lm_hybrid_serve -- the same model behind ``ServeEngine`` as in 11,
+                 beside a step's weight-bytes bound (every expert is read
+                 every step: the reference's dense dispatch).
+16. lm_small_full -- xlstm_350m whole (24 layers) in bf16: prefill of 1 x
+                 4096 and the engine run of 11; whisper_small whole (12 +
+                 12 layers) in bf16: a forward over 1500 frames and a
+                 448-token prompt (exactly 36 flash launches), the
+                 encoder alone, and 32 ``decode_step``s with
+                 ``enc_memory``.
 
 A ``lap`` line after each group of phases gives its wall seconds and
 the running total, and the done line repeats them.
@@ -237,7 +276,7 @@ the running total, and the done line repeats them.
 Launch counters are zeroed just before each path (main, hnsw, nsg, the
 two tune runs, the serving ground truth ``serve_gt``, serve,
 serve_sharded, stream_exact, stream and its ground truth ``stream_gt``,
-and the LM phases) and read just after; every kernel of that path must
+and each LM phase) and read just after; every kernel of that path must
 have launched.
 
 ``--profile N`` runs only device, build and a profile of one fused
@@ -341,6 +380,28 @@ EXACT_B, EXACT_S = 2, 48   # lm_exact: 48 > the smoke window 32
 SERVE_SLOTS, SERVE_MAX_SEQ = 4, 512
 SERVE_REQS, SERVE_PROMPT, SERVE_NEW = 8, 32, 32
 PROFILE_STEPS = 8          # decode steps profiled after the serve run
+# The rest of the LM.  lm_families_exact: all ten archs' smoke configs.
+# lm_mixers_width and lm_hybrid_*: jamba_v01_52b at its full widths
+# (d_model 4096, 32 heads of 128, GQA 32:8, Mamba d_inner 8192 and d_state
+# 16, 16 experts top-2 of d_ff 14336, vocab 65536), one period group of
+# its 32 layers (1 attention, 7 Mamba, 4 MoE); xlstm_350m (mLSTM head 512)
+# and whisper_small (12 + 12 layers, 1500 encoder frames) whole.
+HYBRID_ARCH = "jamba_v01_52b"
+FAMILY_B, FAMILY_S = 2, 12    # lm_families_exact (the reference test's)
+FAMILY_PROMPTS = (10, 2, 5, 7)
+MIXER_B, MIXER_S = 2, 200     # 200 = 128 + 72: a second, padded chunk
+MOE_B, MOE_S = 2, 64          # the MoE sublayer's 128 tokens
+WHISPER_LAYER_S = 64          # lm_mixers_width's decoder layer
+XLSTM_PREFILL_S = 4096
+WHISPER_PROMPT, WHISPER_STEPS = 448, 32
+# card against CPU for the smoke models: 1e-4, but 1e-3 for xlstm, whose
+# stack of mLSTM layers is ill-conditioned in fp32 (the reference's own
+# fp32 run strays from float64 as far: tools/witness_xlstm_conditioning.py)
+FAMILY_TOL = {"xlstm_350m": 1e-3}
+# lm_mixers_width's full-width MoE, card against CPU, as a share of its
+# largest output: the fp32 card read 4.2e-6 (PERF.md §6); a few times that,
+# and well under what TF32 products give (read beside it in the same run)
+MOE_NORMWISE_TOL = 2e-5
 # Flash tolerances as (rtol, atol).  fp32: the reference's 5e-4
 # (tests/test_kernels.py).  bf16: the kernel and its plain version both
 # accumulate in fp32 from the same bf16 inputs and round the output once,
@@ -930,25 +991,88 @@ def _flash_shapes() -> list[tuple]:
     flash cases every check of the kernel runs (FA_CASES) in both dtypes,
     and the prefill's shape in fp32 too: there the window binds across
     many q blocks, and fp32 holds the kernel to 5e-4 rather than to a bf16
-    rounding."""
+    rounding.  Then the other archs' launches: each smoke config's
+    attention (fp32), whisper's encoder (non-causal, sq = sk) and
+    cross-attention (non-causal, sq != sk), whisper_small's decoder layer
+    of lm_mixers_width in fp32, jamba's attention layer in bf16 (warm-up
+    and 8192 tokens), and whisper_small whole in bf16 (1500 frames, the
+    warm-up's 256 and the prompt's 448 tokens)."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.kernels.flash_attention import FA_CASES
+    from repro_torch.models.model import layer_plan
     full = registry.get_config(LM_ARCH)
     smoke = full.smoke()
+    f32, bf16 = torch.float32, torch.bfloat16
     out = []
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (f32, bf16):
         out += [(2, 3, c["sq"], c["sk"], 16, dt, c["causal"], c["w"],
                  c["cap"], c["off"]) for c in FA_CASES]
-    for cfg, b, s, dt in ((smoke, EXACT_B, EXACT_S, torch.float32),
-                          (full, WIDTH_B, WIDTH_S, torch.float32),
-                          (full, 1, WARM_S, torch.bfloat16),
-                          (full, 1, PREFILL_S, torch.bfloat16),
-                          (full, 1, PREFILL_S, torch.float32)):
+    for cfg, b, s, dt in ((smoke, EXACT_B, EXACT_S, f32),
+                          (full, WIDTH_B, WIDTH_S, f32),
+                          (full, 1, WARM_S, bf16),
+                          (full, 1, PREFILL_S, bf16),
+                          (full, 1, PREFILL_S, f32)):
         for window in (cfg.window, 0):
             out.append((b, cfg.n_heads, s, s, cfg.head_dim, dt, True, window,
                         cfg.attn_softcap, 0))
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_config(arch).smoke()
+        for window in sorted({k.window for k in layer_plan(cfg)
+                              if k.mixer == "attn"}):
+            out.append((FAMILY_B, cfg.n_heads, FAMILY_S, FAMILY_S,
+                        cfg.head_dim, f32, True, window, cfg.attn_softcap,
+                        0))
+        if cfg.is_encdec:
+            out += [(FAMILY_B, cfg.n_heads, sq, cfg.enc_seq, cfg.head_dim,
+                     f32, False, 0, 0.0, 0) for sq in (cfg.enc_seq,
+                                                       FAMILY_S)]
+    wh = registry.get_config("whisper_small")
+    out += [(MIXER_B, wh.n_heads, WHISPER_LAYER_S, WHISPER_LAYER_S,
+             wh.head_dim, f32, True, 0, 0.0, 0),
+            (MIXER_B, wh.n_heads, WHISPER_LAYER_S, wh.enc_seq, wh.head_dim,
+             f32, False, 0, 0.0, 0)]
+    jam = registry.get_config(HYBRID_ARCH)
+    out += [(1, jam.n_heads, s, s, jam.head_dim, bf16, True, 0, 0.0, 0)
+            for s in (WARM_S, PREFILL_S)]
+    out.append((1, wh.n_heads, wh.enc_seq, wh.enc_seq, wh.head_dim, bf16,
+                False, 0, 0.0, 0))
+    for s in (WARM_S, WHISPER_PROMPT):
+        out += [(1, wh.n_heads, s, s, wh.head_dim, bf16, True, 0, 0.0, 0),
+                (1, wh.n_heads, s, wh.enc_seq, wh.head_dim, bf16, False, 0,
+                 0.0, 0)]
     return out
+
+
+def _whisper_flash_timed(fa, gen) -> list[dict]:
+    """The bf16 kernel at whisper_small's two non-causal shapes (the
+    encoder's 1500 x 1500, the decoder prompt's 448 x 1500; dh 64, a
+    ragged last key tile), beside SDPA, which computes the same function
+    there (no mask, no soft-cap)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import registry
+    wh = registry.get_config("whisper_small")
+    rows = []
+    for sq in (wh.enc_seq, WHISPER_PROMPT):
+        q = torch.randn((1, wh.n_heads, sq, wh.head_dim), generator=gen,
+                        device="cuda", dtype=torch.bfloat16)
+        k, v = (torch.randn((1, wh.n_heads, wh.enc_seq, wh.head_dim),
+                            generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        kw = dict(causal=False)
+        row = timed_row(lambda: fa.flash_attention(q, k, v, **kw),
+                        lambda: fa.flash_attention_plain(q, k, v, **kw),
+                        lambda: F.scaled_dot_product_attention(q, k, v))
+        flops = 4.0 * wh.n_heads * sq * wh.enc_seq * wh.head_dim
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                    BF16_FLOPS)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(dict(shape=[1, wh.n_heads, sq, wh.enc_seq, wh.head_dim],
+                         dtype="bfloat16", causal=False, **row))
+        del q, k, v
+    return rows
 
 
 def _flash_row(fa, gen) -> dict:
@@ -1028,6 +1152,7 @@ def _flash_row(fa, gen) -> dict:
     lib_w = timed(window, 0.0, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=wmask))
     del q, k, v, wmask
+    whisper = _whisper_flash_timed(fa, gen)
     fp32, fp32_floors = zip(*(_flash_f32_timed(fa, gen, b, s_, cfg_h,
                                                cfg_dh, sfu_rate)
                               for (b, s_) in ((1, PREFILL_S),
@@ -1070,6 +1195,7 @@ def _flash_row(fa, gen) -> dict:
                     library_ms_spread=lib_w["library_ms_spread"],
                     **settings(lib_w)),
                 fp32_body=list(fp32),
+                whisper_settings=whisper,
                 library="torch.nn.functional.scaled_dot_product_attention("
                         "is_causal=True) at softcap 0 and no window: the "
                         "nearest library call, not the same function (it "
@@ -1314,7 +1440,7 @@ def _single_equals_multi(family: str, multi, single, i: int, M: int) -> bool:
 
 
 def phase_exact() -> None:
-    """n=2000 integer data, for each family (Vamana, HNSW, NSG): the fused
+    """EXACT_N integer data, for each family (Vamana, HNSW, NSG): the fused
     build on the card == the per_batch build on the card == the fused
     build on the CPU (ids, edge lengths, counters, entry; HNSW's levels
     and top layer too); multi == single on the card for the configs in
@@ -1378,6 +1504,11 @@ def zero_counts(counters: dict) -> None:
 def read_counts(counters: dict) -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in
             counters.items()}
+
+
+def _sum_counts(*counts: dict) -> dict:
+    """Launches of several counted runs of one path, kernel by kernel."""
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
 
 
 def knn_split(data, queries) -> None:
@@ -1728,7 +1859,7 @@ def phase_family(family: str, cfgs: list, main_data: tuple,
     every baseline build (a step a batch of a layer); the gather and prune
     kernels (and, for NSG, the pairwise kernel) must have launched on the
     path.  Fused == per_batch for each family is the exact phase's (n =
-    2000), not repeated here at n = 50k for time."""
+    EXACT_N), not repeated here at the main path's n for time."""
     import torch
     from repro_torch.core import search
     from repro_torch.core.tuner import estimator
@@ -1908,7 +2039,8 @@ def phase_tune(main_data: tuple, counters: dict) -> dict:
                      for b in watch.builds],
              stage_calls_after_capture=watch.late_calls,
              launches=launches, **rec,
-             reduced="budget 100 -> 20 and n 1M -> 50k (time limit)")
+             reduced=f"budget 100 -> 20 and n 1M -> "
+                     f"{main_data[0].shape[0]} (time limit)")
         if len(res.cfgs) != TUNE["budget"]:
             raise AssertionError(f"tune {mode}: {len(res.cfgs)} configs")
         if rec["best_recall"] < 0.9:
@@ -3133,6 +3265,19 @@ def _assert_close(name: str, got, want, tol: float) -> float:
     return err
 
 
+def _assert_close_normwise(name: str, got, want, tol: float) -> tuple:
+    """max |got - want| <= tol * max |want|: for outputs far from 1 (the
+    MoE's reach ~1e4: the reference draws expert weights at fan-in =
+    n_experts), where an elementwise bound fails on the entries that
+    cancel to ~0.  Returns (max err, max |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max err {err} beyond {tol} of the "
+                             f"largest output {scale}")
+    return err, scale
+
+
 def _teacher_forced(M, model, toks):
     """Logits of decode_step fed the tokens one by one (plain attention)."""
     import torch
@@ -3342,8 +3487,403 @@ def phase_lm_prefill(counters: dict):
 
 def phase_lm_serve(counters: dict, model) -> dict:
     """The full bf16 model behind ServeEngine: SERVE_REQS requests."""
+    row, launches = _serve_run(model, "lm_serve", counters)
+    emit("lm_serve", arch=LM_ARCH, dtype="bfloat16", kv_dtype="float32",
+         **row, launches=launches)
+    return launches
+
+
+def _drop_free(model):
+    """The model under its config's drop-free MoE capacity (the reference's
+    ``tests/test_models.py`` sets it for teacher-forced decode): a shallow
+    copy sharing the weights."""
+    cfg = model.cfg
+    if not cfg.n_experts:
+        return model
+    free = copy.copy(model)
+    free.cfg = dataclasses.replace(cfg, moe_capacity_factor=float(
+        cfg.n_experts) / cfg.experts_per_tok)
+    return free
+
+
+def _flash_per_forward(M, cfg) -> int:
+    """Flash launches of one forward: each attention layer, and for an
+    encoder-decoder each encoder layer and each cross-attention."""
+    n = sum(k.mixer == "attn" for k in M.layer_plan(cfg)) * cfg.n_groups
+    if cfg.is_encdec:
+        n += cfg.n_layers + cfg.n_enc_layers
+    return n
+
+
+def _extras(cfg, b: int, gen, device: str, dtype=None) -> dict:
+    """Stub frame embeddings / patch embeddings (0.05-scaled normals, as
+    the reference's tests draw them) for an encoder-decoder or a
+    vision-stub config."""
+    import torch
+    ex = {}
+    if cfg.is_encdec:
+        ex["enc_input"] = torch.randn(b, cfg.enc_seq, cfg.d_model,
+                                      generator=gen) * 0.05
+    if cfg.vision_stub:
+        ex["patches"] = torch.randn(b, cfg.n_patches, cfg.d_model,
+                                    generator=gen) * 0.05
+    return {k: v.to(device=device, dtype=dtype or v.dtype)
+            for k, v in ex.items()}
+
+
+def phase_lm_families_exact(counters: dict) -> dict:
+    """All ten archs' smoke configs in fp32, the card against the CPU."""
     import numpy as np
     import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine
+    rows = []
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_config(arch).smoke()
+        tol = FAMILY_TOL.get(arch, 1e-4)
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        gen = torch.Generator().manual_seed(5)
+        toks = torch.randint(0, cfg.vocab, (FAMILY_B, FAMILY_S),
+                             generator=gen)
+        ex = _extras(cfg, FAMILY_B, gen, "cpu")
+        ex_card = {k: v.cuda() for k, v in ex.items()}
+        before = fa.LAUNCHES
+        full = M.forward(card, toks.cuda(), extras=ex_card)
+        # teacher-forced decode against the forward, MoE drop-free and
+        # without llava's patches (decode has no patch input)
+        free = _drop_free(card)
+        again = free is not card or cfg.vision_stub
+        ref = M.forward(free, toks.cuda(), extras={
+            k: v for k, v in ex_card.items() if k != "patches"}) \
+            if again else full
+        mem = ({"enc_memory": M.encode(card, ex_card["enc_input"])}
+               if cfg.is_encdec else {})
+        cache = M.init_cache(free, FAMILY_B, FAMILY_S)
+        dec = torch.cat([M.decode_step(free, toks[:, t:t + 1].cuda(), cache,
+                                       t, extras=mem)[0]
+                         for t in range(FAMILY_S)], dim=1)
+        torch.cuda.synchronize()
+        flash = fa.LAUNCHES - before
+        want = M.forward(cpu, toks, extras=ex)
+        row = dict(arch=arch, layers=cfg.n_layers,
+                   mixers=[k.mixer for k in M.layer_plan(cfg)],
+                   tol=tol, flash_launches=flash,
+                   flash_expected=_flash_per_forward(M, cfg) * (
+                       1 + again) + (
+                       cfg.n_enc_layers if cfg.is_encdec else 0),
+                   forward_card_vs_cpu=_assert_close(
+                       f"lm_families_exact {arch} forward card vs CPU",
+                       full.cpu(), want, tol),
+                   decode_vs_forward=_assert_close(
+                       f"lm_families_exact {arch} decode vs forward", dec,
+                       ref, 2e-2))
+        if not cfg.is_encdec:           # the engine passes no extras
+            prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen)
+                       .numpy().astype(np.int32) for n in FAMILY_PROMPTS]
+            tokens = {}
+            for dev, model in (("cuda", card), ("cpu", cpu)):
+                eng = engine.ServeEngine(model, cfg, batch_slots=2,
+                                         max_seq=64)
+                tokens[dev] = [r.out for r in eng.run(
+                    [engine.Request(rid=i, prompt=p, max_new=8)
+                     for i, p in enumerate(prompts)])]
+            row["engine_identical"] = tokens["cuda"] == tokens["cpu"]
+            if not row["engine_identical"]:
+                raise AssertionError(f"lm_families_exact {arch}: engine "
+                                     f"tokens differ: {tokens}")
+        if row["flash_launches"] != row["flash_expected"]:
+            raise AssertionError(f"lm_families_exact {arch}: {flash} flash "
+                                 f"launches, expected "
+                                 f"{row['flash_expected']}")
+        rows.append(row)
+        del cpu, card, free, full, ref, dec, cache
+    launches = read_counts(counters)
+    emit("lm_families_exact", batch=FAMILY_B, seq=FAMILY_S,
+         dtype="float32", archs=rows, seconds=time.perf_counter() - t0,
+         launches=launches)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_mixers_width(counters: dict) -> dict:
+    """One sublayer of each new mixer at its config's full width, fp32:
+    the card against the CPU to 1e-3, decode against forward to 2e-2."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import mamba as mamba_lib
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+    f32 = dict(device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    zero_counts(counters)
+    # jamba's Mamba mixer: B=2, S=200 (two chunks, the second padded)
+    jam = registry.get_config(HYBRID_ARCH)
+    card = mamba_lib.init_mamba(gen, jam.d_model, d_state=jam.d_state,
+                                **f32)
+    cpu = {k: v.cpu() for k, v in card.items()}
+    x = torch.randn(MIXER_B, MIXER_S, jam.d_model, generator=gen,
+                    device="cuda")
+    t0 = time.perf_counter()
+    y = mamba_lib.mamba_forward(card, x, d_state=jam.d_state)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    cache = mamba_lib.init_mamba_cache(card, MIXER_B)
+    dec = []
+    for i in range(MIXER_S):
+        yi, cache = mamba_lib.mamba_decode_step(card, x[:, i:i + 1], cache,
+                                                d_state=jam.d_state)
+        dec.append(yi)
+    dec = torch.cat(dec, dim=1)
+    out["mamba"] = dict(
+        shape=[MIXER_B, MIXER_S, jam.d_model], d_inner=2 * jam.d_model,
+        d_state=jam.d_state, card_forward_s=fwd_s,
+        forward_card_vs_cpu=_assert_close(
+            "mamba card vs CPU", y.cpu(), mamba_lib.mamba_forward(
+                cpu, x.cpu(), d_state=jam.d_state), 1e-3),
+        decode_vs_forward=_assert_close("mamba decode vs forward", dec, y,
+                                        2e-2))
+    del card, cpu, y, dec, cache
+    # jamba's MoE FFN: 16 experts of d_ff 14336 (2.82 B parameters)
+    card = moe_lib.init_moe(gen, jam.d_model, jam.d_ff, jam.n_experts,
+                            jam.act, **f32)
+    cpu = {k: v.cpu() for k, v in card.items()}
+    n_params = sum(v.numel() for v in card.values())
+    t = torch.randn(MOE_B * MOE_S, jam.d_model, generator=gen,
+                    device="cuda")
+    kw = dict(n_experts=jam.n_experts, top_k=jam.experts_per_tok,
+              capacity_factor=jam.moe_capacity_factor)
+    rg, rc = moe_lib.route(card, t, **kw), moe_lib.route(cpu, t.cpu(), **kw)
+    fields = ("top_idx", "order", "slot", "keep")
+    same = {f: bool(torch.equal(getattr(rg, f).cpu(), getattr(rc, f)))
+            for f in fields}
+    # the same tokens at a capacity factor that forces drops: the dropped
+    # assignments must be the same on both devices
+    tight = dict(kw, capacity_factor=0.5)
+    dg, dc = (moe_lib.route(card, t, **tight),
+              moe_lib.route(cpu, t.cpu(), **tight))
+    same_tight = {f: bool(torch.equal(getattr(dg, f).cpu(), getattr(dc, f)))
+                  for f in fields}
+    t0 = time.perf_counter()
+    y = moe_lib.moe_ffn(card, t, act=jam.act, **kw)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    out["moe"] = dict(
+        tokens=MOE_B * MOE_S, experts=jam.n_experts, d_ff=jam.d_ff,
+        params=n_params, capacity=rg.cap,
+        dropped=int((~rg.keep).sum()), routing_identical=same,
+        dropped_at_capacity_factor_0_5=int((~dg.keep).sum()),
+        routing_identical_at_0_5=same_tight, card_forward_s=fwd_s)
+    if not (all(same.values()) and all(same_tight.values())
+            and not bool(dg.keep.all())):
+        raise AssertionError(f"lm_mixers_width: MoE routing differs on the "
+                             f"card: {same}, {same_tight} (drops at 0.5: "
+                             f"{int((~dg.keep).sum())})")
+    want = moe_lib.moe_ffn(cpu, t.cpu(), act=jam.act, **kw)
+    err, scale = _assert_close_normwise("moe card vs CPU", y.cpu(), want,
+                                        MOE_NORMWISE_TOL)
+    # the bound's other side: the same forward with the products in TF32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        r32 = moe_lib.route(card, t, **kw)
+        y32 = moe_lib.moe_ffn(card, t, act=jam.act, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err32 = float((y32.cpu() - want).abs().max())
+    out["moe"].update(
+        forward_card_vs_cpu=err, output_max_abs=scale,
+        normwise_card_vs_cpu=err / scale, normwise_tol=MOE_NORMWISE_TOL,
+        tf32_forward_card_vs_cpu=err32, tf32_normwise=err32 / scale,
+        tf32_routing_identical=bool(torch.equal(r32.top_idx, rg.top_idx)),
+        tf32_beyond_tol=err32 > MOE_NORMWISE_TOL * scale)
+    del card, cpu, y, y32, want, rg, rc, dg, dc, r32
+    torch.cuda.empty_cache()
+    # xlstm_350m's mLSTM and sLSTM blocks (the sLSTM with its 4d/3 FFN)
+    xl = registry.get_config("xlstm_350m")
+    plan = M.layer_plan(xl)
+    x = torch.randn(MIXER_B, MIXER_S, xl.d_model, generator=gen,
+                    device="cuda")
+    for j in (0, xl.slstm_period - 1):
+        kind = plan[j]
+        p = M._init_sublayer(gen, xl, kind, **f32)
+        cpu = copy.deepcopy(p).to("cpu")
+        t0 = time.perf_counter()
+        y = M._apply_sublayer(p, x, xl, kind)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        cache = M._init_sublayer_cache(p, xl, kind, MIXER_B, MIXER_S,
+                                       torch.float32, torch.device("cuda"))
+        dec = torch.cat([M._decode_sublayer(p, x[:, i:i + 1], cache, xl,
+                                            kind, i)
+                         for i in range(MIXER_S)], dim=1)
+        out[kind.mixer] = dict(
+            shape=[MIXER_B, MIXER_S, xl.d_model], heads=xl.n_heads,
+            card_forward_s=fwd_s,
+            forward_card_vs_cpu=_assert_close(
+                f"{kind.mixer} card vs CPU", y.cpu(),
+                M._apply_sublayer(cpu, x.cpu(), xl, kind), 1e-3),
+            decode_vs_forward=_assert_close(
+                f"{kind.mixer} decode vs forward", dec, y, 2e-2))
+        del p, cpu, y, dec, cache
+    # a whisper_small decoder layer: self-attention, cross-attention over
+    # 1500 encoder frames, the GELU FFN
+    wh = registry.get_config("whisper_small")
+    kind = M.layer_plan(wh)[0]
+    p = M._init_sublayer(gen, wh, kind, **f32)
+    cpu = copy.deepcopy(p).to("cpu")
+    x = torch.randn(MIXER_B, WHISPER_LAYER_S, wh.d_model, generator=gen,
+                    device="cuda")
+    memory = torch.randn(MIXER_B, wh.enc_seq, wh.d_model, generator=gen,
+                         device="cuda")
+    y = M._apply_sublayer(p, x, wh, kind, memory=memory)
+    cache = M._init_sublayer_cache(p, wh, kind, MIXER_B, WHISPER_LAYER_S,
+                                   torch.float32, torch.device("cuda"))
+    dec = torch.cat([M._decode_sublayer(p, x[:, i:i + 1], cache, wh, kind,
+                                        i, memory)
+                     for i in range(WHISPER_LAYER_S)], dim=1)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    out["whisper_cross"] = dict(
+        shape=[MIXER_B, WHISPER_LAYER_S, wh.d_model], enc_frames=wh.enc_seq,
+        forward_card_vs_cpu=_assert_close(
+            "whisper layer card vs CPU", y.cpu(), M._apply_sublayer(
+                cpu, x.cpu(), wh, kind, memory=memory.cpu()), 1e-3),
+        decode_vs_forward=_assert_close("whisper layer decode vs forward",
+                                        dec, y, 2e-2))
+    emit("lm_mixers_width", dtype="float32", mixers=out, launches=launches,
+         reduced="one sublayer of each mixer; B=2")
+    if launches["flash_attention"] != 2:
+        raise AssertionError(f"lm_mixers_width: "
+                             f"{launches['flash_attention']} flash launches, "
+                             f"expected 2 (whisper's self and cross)")
+    del p, cpu, x, memory, y, dec, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _mixer_events():
+    """CUDA events around each call of the forward's mixers and FFNs
+    (attention, Mamba, MoE, dense MLP), by name."""
+    import torch
+    from repro_torch.models import layers, mamba, moe
+    targets = [(layers, "attention_train", "attention"),
+               (mamba, "mamba_forward", "mamba"), (moe, "moe_ffn", "moe"),
+               (layers, "mlp", "mlp")]
+    events = {name: [] for _, _, name in targets}
+    real = {name: getattr(mod, attr) for mod, attr, name in targets}
+
+    def wrap(name):
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*a, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return timed
+
+    for mod, attr, name in targets:
+        setattr(mod, attr, wrap(name))
+    try:
+        yield events
+    finally:
+        for mod, attr, name in targets:
+            setattr(mod, attr, real[name])
+
+
+def _weight_bytes(model) -> int:
+    """Bytes of the parameters a decode step reads: all of them, but for
+    the embedding table, of which it gathers one row a slot (an untied
+    model reads its output head whole)."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if name != "embed.emb" or model.cfg.tie_embeddings)
+
+
+def phase_lm_hybrid_prefill(counters: dict):
+    """jamba_v01_52b's one period group at full width in bf16: forward of
+    1 x PREFILL_S tokens, milliseconds by mixer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    full = registry.get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=full.period)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(23),
+                          device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    M.forward(model, torch.randint(0, cfg.vocab, (1, WARM_S), generator=gen,
+                                   device="cuda"))
+    toks = torch.randint(0, cfg.vocab, (1, PREFILL_S), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    with _mixer_events() as events:
+        t0 = time.perf_counter()
+        logits = M.forward(model, toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    by_mixer = {name: sum(s.elapsed_time(e) for s, e in ev)
+                for name, ev in events.items()}
+    calls = {name: len(ev) for name, ev in events.items()}
+    finite = bool(torch.isfinite(logits).all())
+    shape_ok = tuple(logits.shape) == (1, PREFILL_S, cfg.vocab)
+    del logits
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        M.forward(model, toks)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, top, n_launch = device_time(prof)
+    emit("lm_hybrid_prefill", arch=HYBRID_ARCH, layers=cfg.n_layers,
+         mixers=[k.mixer + ("+moe" if k.moe else "")
+                 for k in M.layer_plan(cfg)],
+         params=n_params, dtype="bfloat16", batch=1, seq=PREFILL_S,
+         init_s=init_s, wall_s=wall, tokens_per_s=PREFILL_S / wall,
+         ms_by_mixer=by_mixer, calls_by_mixer=calls,
+         ms_rest=wall * 1e3 - sum(by_mixer.values()),
+         peak_memory_bytes=peak, finite=finite, shape_ok=shape_ok,
+         launches=launches, profiled_wall_s=prof_wall,
+         device_busy_s=busy, device_idle_share=1.0 - busy / prof_wall,
+         cuda_launches=n_launch, top_device_ms=top,
+         reduced=f"{cfg.n_layers} of {full.n_layers} layers (one period "
+                 f"group); 1 x {PREFILL_S} tokens of prefill_32k's 32 x "
+                 f"32768 (time); random weights")
+    if not (finite and shape_ok):
+        raise AssertionError(f"lm_hybrid_prefill: finite={finite} "
+                             f"shape_ok={shape_ok}")
+    if launches["flash_attention"] != 1:
+        raise AssertionError(f"lm_hybrid_prefill: "
+                             f"{launches['flash_attention']} flash launches, "
+                             f"expected 1")
+    return launches, model
+
+
+def _serve_run(model, name: str, counters: dict) -> tuple:
+    """SERVE_REQS requests of SERVE_PROMPT tokens, SERVE_NEW new tokens
+    each, on SERVE_SLOTS slots; then PROFILE_STEPS decode steps of the
+    full batch under the profiler.  Returns the row and the launches of
+    the engine's run alone (counted around ``eng.run``, before the
+    profiled steps)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import engine
     cfg = model.cfg
     gen = torch.Generator().manual_seed(15)
@@ -3362,8 +3902,6 @@ def phase_lm_serve(counters: dict, model) -> dict:
     new = sum(len(r.out) for r in reqs)
     ok = all(r.done and len(r.out) == SERVE_NEW
              and all(0 <= t < cfg.vocab for t in r.out) for r in reqs)
-    # a few more decode steps of the full batch under the profiler
-    from torch.profiler import ProfilerActivity, profile
     tok = np.ones((SERVE_SLOTS, 1), np.int32)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3373,29 +3911,144 @@ def phase_lm_serve(counters: dict, model) -> dict:
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     busy, top, n_launch = device_time(prof)
-    emit("lm_serve", arch=LM_ARCH, dtype="bfloat16", kv_dtype="float32",
-         slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, requests=SERVE_REQS,
-         prompt=SERVE_PROMPT, max_new=SERVE_NEW, wall_s=wall,
-         new_tokens=new, tokens_per_s=new / wall,
-         decode_calls=calls, ms_per_decode_step=wall * 1e3 / calls,
-         prompt_tokens=SERVE_REQS * SERVE_PROMPT,
-         first_tokens=[r.out[:4] for r in reqs], all_finished=ok,
-         launches=launches, profiled_steps=PROFILE_STEPS,
-         profiled_ms_per_step=prof_wall * 1e3 / PROFILE_STEPS,
-         device_busy_ms_per_step=busy * 1e3 / PROFILE_STEPS,
-         device_idle_share=1.0 - busy / prof_wall,
-         cuda_launches_per_step=n_launch / PROFILE_STEPS,
-         top_device_ms=top)
     if not ok:
-        raise AssertionError("lm_serve: a request did not finish with "
-                             "in-vocab tokens")
+        raise AssertionError(f"{name}: a request did not finish with "
+                             f"in-vocab tokens")
+    return dict(slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                requests=SERVE_REQS, prompt=SERVE_PROMPT,
+                max_new=SERVE_NEW, wall_s=wall, new_tokens=new,
+                tokens_per_s=new / wall, decode_calls=calls,
+                ms_per_decode_step=wall * 1e3 / calls,
+                prompt_tokens=SERVE_REQS * SERVE_PROMPT,
+                first_tokens=[r.out[:4] for r in reqs], all_finished=ok,
+                profiled_steps=PROFILE_STEPS,
+                profiled_ms_per_step=prof_wall * 1e3 / PROFILE_STEPS,
+                device_busy_ms_per_step=busy * 1e3 / PROFILE_STEPS,
+                device_idle_share=1.0 - busy / prof_wall,
+                cuda_launches_per_step=n_launch / PROFILE_STEPS,
+                top_device_ms=top), launches
+
+
+def phase_lm_hybrid_serve(counters: dict, model) -> dict:
+    """The jamba group behind ServeEngine, beside its weight-bytes bound:
+    the reference's dense dispatch runs all 16 experts every step."""
+    row, launches = _serve_run(model, "lm_hybrid_serve", counters)
+    nbytes = _weight_bytes(model)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    emit("lm_hybrid_serve", arch=HYBRID_ARCH, layers=model.cfg.n_layers,
+         dtype="bfloat16", state_dtype="float32", **row,
+         step_weight_bytes=nbytes, step_bound_ms=bound,
+         bound_share_of_step=bound / row["ms_per_decode_step"],
+         bound_share_of_busy=(bound / row["device_busy_ms_per_step"]
+                              if row["device_busy_ms_per_step"] else None),
+         launches=launches)
+    return launches
+
+
+def phase_lm_small_full(counters: dict) -> dict:
+    """xlstm_350m and whisper_small whole, bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    # xlstm_350m: prefill of 1 x XLSTM_PREFILL_S, then the engine
+    xl = registry.get_config("xlstm_350m")
+    model = M.init_params(xl, torch.Generator(device="cuda").manual_seed(31),
+                          **bf16)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    toks = torch.randint(0, xl.vocab, (1, XLSTM_PREFILL_S), generator=gen,
+                         device="cuda")
+    M.forward(model, toks[:, :WARM_S])
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    logits = M.forward(model, toks)
+    torch.cuda.synchronize()
+    xl_wall = time.perf_counter() - t0
+    xl_prefill = read_counts(counters)
+    xl_finite = bool(torch.isfinite(logits).all())
+    del logits
+    serve, xl_serve = _serve_run(model, "lm_small_full xlstm", counters)
+    xl_row = dict(arch="xlstm_350m", layers=xl.n_layers,
+                  params=sum(p.numel() for p in model.parameters()),
+                  prefill_seq=XLSTM_PREFILL_S, prefill_s=xl_wall,
+                  prefill_tokens_per_s=XLSTM_PREFILL_S / xl_wall,
+                  finite=xl_finite, serve=serve,
+                  launches=_sum_counts(xl_prefill, xl_serve))
+    del model
+    # whisper_small: encoder, decoder prefill with cross-attention, decode
+    wh = registry.get_config("whisper_small")
+    model = M.init_params(wh, torch.Generator(device="cuda").manual_seed(33),
+                          **bf16)
+    frames = (torch.randn(1, wh.enc_seq, wh.d_model, generator=gen,
+                          device="cuda") * 0.05).to(torch.bfloat16)
+    toks = torch.randint(0, wh.vocab, (1, WHISPER_PROMPT), generator=gen,
+                         device="cuda")
+    M.forward(model, toks[:, :WARM_S], extras={"enc_input": frames})
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    logits = M.forward(model, toks, extras={"enc_input": frames})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_flash = fa.LAUNCHES
+    t0 = time.perf_counter()
+    memory = M.encode(model, frames)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    cache = M.init_cache(model, 1, WHISPER_STEPS)
+    t0 = time.perf_counter()
+    dec = torch.cat([M.decode_step(model, toks[:, t:t + 1], cache, t,
+                                   extras={"enc_memory": memory})[0]
+                     for t in range(WHISPER_STEPS)], dim=1)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    wh_launches = read_counts(counters)
+    launches = _sum_counts(xl_row["launches"], wh_launches)
+    wh_finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(dec).all())
+    wh_row = dict(arch="whisper_small", layers=wh.n_layers,
+                  enc_layers=wh.n_enc_layers, enc_frames=wh.enc_seq,
+                  params=sum(p.numel() for p in model.parameters()),
+                  prompt=WHISPER_PROMPT, forward_s=fwd_s,
+                  forward_flash_launches=fwd_flash, encode_s=enc_s,
+                  decode_steps=WHISPER_STEPS,
+                  ms_per_decode_step=dec_s * 1e3 / WHISPER_STEPS,
+                  decode_vs_forward_bf16=float(
+                      (dec.float() - logits[:, :WHISPER_STEPS].float())
+                      .abs().max()),
+                  finite=wh_finite, launches=wh_launches)
+    emit("lm_small_full", dtype="bfloat16", state_dtype="float32",
+         models=[xl_row, wh_row], launches=launches)
+    if not (xl_finite and wh_finite):
+        raise AssertionError(f"lm_small_full: finite xlstm={xl_finite} "
+                             f"whisper={wh_finite}")
+    want = wh.n_layers * 2 + wh.n_enc_layers
+    if fwd_flash != want:
+        raise AssertionError(f"lm_small_full: whisper forward made "
+                             f"{fwd_flash} flash launches, expected {want}")
+    # the encode adds one a layer; one-token decode runs plain attention
+    if (wh_launches["flash_attention"] != want + wh.n_enc_layers
+            or xl_row["launches"]["flash_attention"] != 0):
+        raise AssertionError(f"lm_small_full: flash launches whisper "
+                             f"{wh_launches['flash_attention']} (expected "
+                             f"{want + wh.n_enc_layers}), xlstm "
+                             f"{xl_row['launches']['flash_attention']} "
+                             f"(expected 0)")
+    del model, logits, memory, dec, cache
+    torch.cuda.empty_cache()
     return launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=50_000,
-                    help="corpus size of the main path (default 50k)")
+    # 25k, not 50k: at 50k the whole script took 1326 s on a slower host
+    # (PERF.md §2), past its 1200 s limit; main, hnsw, nsg and tune scale
+    # with n
+    ap.add_argument("--n", type=int, default=25_000,
+                    help="corpus size of the main path (default 25k)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="only profile one grouped build of N points")
     args = ap.parse_args()
@@ -3483,6 +4136,15 @@ def main() -> int:
     by_path["lm_serve"] = phase_lm_serve(counters, model)
     lap("lm")
     del model
+    torch.cuda.empty_cache()
+    by_path["lm_families_exact"] = phase_lm_families_exact(counters)
+    by_path["lm_mixers_width"] = phase_lm_mixers_width(counters)
+    by_path["lm_hybrid_prefill"], model = phase_lm_hybrid_prefill(counters)
+    by_path["lm_hybrid_serve"] = phase_lm_hybrid_serve(counters, model)
+    del model
+    torch.cuda.empty_cache()
+    by_path["lm_small_full"] = phase_lm_small_full(counters)
+    lap("lm_rest")
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}

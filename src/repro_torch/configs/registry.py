@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> resolution and the cell skip rules.
 
 Port of ``repro/configs/registry.py``.  ``input_specs`` (the dry-run's
-``jax.ShapeDtypeStruct`` stand-ins) is not ported: it waits for the
-dry-run's port (ROADMAP queue 1, item 9).
+``jax.ShapeDtypeStruct`` stand-ins) is not ported: its only caller is the
+dry-run, and it waits for that port (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 

@@ -177,8 +177,12 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig,
 
     The reference stacks each period group's sublayers into (n_groups, ...)
     leaves under ``blocks/sub{j}``; leaf ``[g]`` becomes layer
-    ``g * period + j``.  Every weight keeps its layout; values are cast to
-    ``dtype``.  The tree must hold exactly the port's parameters."""
+    ``g * period + j``.  An encoder-decoder's stacked ``encoder`` leaves
+    ``[l]`` become encoder layer l, beside ``enc_norm``.  Every weight
+    keeps its layout (attention, Mamba, mLSTM, sLSTM, MoE, dense and
+    cross-attention leaves alike); values are cast to ``dtype``.  The tree
+    must hold exactly the port's parameters: every reference leaf lands on
+    one port parameter."""
     dev = resolve_device(device)
     model = model_lib.init_params(cfg, None, device=dev, dtype=dtype)
     done: set[str] = set()
@@ -192,27 +196,34 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig,
             param.copy_(torch.from_numpy(a))
         done.add(name)
 
+    def stacked(top: str, sub: dict, layer, i: int) -> None:
+        for mod, params in layer.items():
+            for pname, param in params.items():
+                put(f"{top}/{mod}/{pname}", param, sub[mod][pname][i])
+
+    def leaves(node, prefix: str = ""):
+        if not isinstance(node, dict):
+            return {prefix[:-1]}
+        return set().union(*(leaves(v, f"{prefix}{k}/")
+                             for k, v in node.items()))
+
     for pname, param in model.embed.items():
         put(f"embed/{pname}", param, tree["embed"][pname])
     put("final_norm/scale", model.final_norm["scale"],
         tree["final_norm"]["scale"])
-    period = cfg.period
     for i, layer in enumerate(model.layers):
-        g, j = divmod(i, period)
-        sub = tree["blocks"][f"sub{j}"]
-        for mod, params in layer.items():
-            for pname, param in params.items():
-                put(f"blocks/sub{j}/{mod}/{pname}", param,
-                    sub[mod][pname][g])
-    want = {f"{top}/{k}" for top in ("embed", "final_norm")
-            for k in tree[top]}
-    want |= {f"blocks/{s}/{m}/{k}" for s, sub in tree["blocks"].items()
-             for m, leaves in sub.items() for k in leaves}
+        g, j = divmod(i, cfg.period)
+        stacked(f"blocks/sub{j}", tree["blocks"][f"sub{j}"], layer, g)
+    if model.encoder is not None:
+        for i, layer in enumerate(model.encoder):
+            stacked("encoder", tree["encoder"], layer, i)
+        put("enc_norm/scale", model.enc_norm["scale"],
+            tree["enc_norm"]["scale"])
+    want = leaves(tree)
     if want != done:
         raise ValueError(f"reference leaves without a port parameter: "
                          f"{sorted(want - done)}")
     return model
-
 
 
 def gp_state_from_numpy(fields: dict,

@@ -38,8 +38,9 @@ _ENTRIES = {torch.float32: "flash_attention_f32",
 # The flash cases every check of this kernel runs (the unit tests, the card
 # tests, the smoke script, tools/emulate_flash_bf16.py): the reference's own
 # seven (tests/test_kernels.py), then several query blocks with a window and
-# a soft-cap, and rows whose window holds no key.  sq/sk: query/key rows,
-# w: window, cap: soft-cap, off: q_offset.
+# a soft-cap, rows whose window holds no key, and whisper's two
+# non-causal shapes.  sq/sk: query/key rows, w: window, cap: soft-cap, off:
+# q_offset.
 FA_CASES = [
     dict(sq=64, sk=64, w=0, cap=0.0, off=0, causal=True),
     dict(sq=32, sk=32, w=17, cap=0.0, off=0, causal=True),
@@ -50,6 +51,10 @@ FA_CASES = [
     dict(sq=16, sk=144, w=48, cap=50.0, off=128, causal=True),
     dict(sq=300, sk=300, w=100, cap=50.0, off=0, causal=True),
     dict(sq=4, sk=8, w=3, cap=0.0, off=18, causal=True),    # all masked
+    # whisper: the encoder over 1500 frames, and the decoder's prompt of
+    # 448 tokens attending them (1500 = 23 * 64 + 28: a ragged key tile)
+    dict(sq=1500, sk=1500, w=0, cap=0.0, off=0, causal=False),
+    dict(sq=448, sk=1500, w=0, cap=0.0, off=0, causal=False),
 ]
 
 

@@ -1,1 +1,2 @@
-"""The LM substrate: layers and the dense-attention model (see model.py)."""
+"""The LM substrate: layers, the Mamba, MoE and xLSTM blocks, and the
+model that assembles them (see model.py)."""

@@ -6,11 +6,12 @@ holding each weight in the reference's layout (``wq`` (d, H, dh), ``wo``
 (``core/convert.lm_params_from_numpy``).  They carry no gradient: the port
 has no training slice yet.  The reference's ``constrain`` sharding hints
 are no-ops without a mesh and are dropped here, with the ``*_axes``
-functions (sharding is ROADMAP queue 1, item 9).
+functions (they wait for their callers, ROADMAP queue 1, item 10).
 
 Full-sequence attention goes through ``ops.flash_attention`` (the
-hand-written kernel on a CUDA tensor); one-token decode attention is plain
-einsum and softmax, as in the reference.
+hand-written kernel on a CUDA tensor), self-attention with RoPE and
+cross-attention over an encoder's ``memory`` without it; one-token decode
+attention is plain einsum and softmax, as in the reference.
 """
 from __future__ import annotations
 
@@ -81,17 +82,34 @@ def init_attention(generator, d, n_heads, n_kv, d_head, *, device,
     })
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the dtype ``jnp`` promotes the pair to (a bf16
+    activation times an fp32 state gives fp32); torch's matmul takes one
+    dtype."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` with its operands promoted to one dtype first."""
+    dt = ops[0].dtype
+    for t in ops[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(eq, *(t.to(dt) for t in ops))
+
+
 def _proj_in(x, w):
     """einsum("bsd,dhk->bshk") as one matmul."""
     b, s, d = x.shape
-    return (x.reshape(b * s, d) @ w.reshape(d, -1)).reshape(
+    return matmul(x.reshape(b * s, d), w.reshape(d, -1)).reshape(
         b, s, w.shape[1], w.shape[2])
 
 
 def _proj_out(x, w):
     """einsum("bshk,hkd->bsd") as one matmul."""
     b, s, h, k = x.shape
-    return (x.reshape(b * s, h * k) @ w.reshape(h * k, -1)).reshape(b, s, -1)
+    return matmul(x.reshape(b * s, h * k), w.reshape(h * k, -1)).reshape(
+        b, s, -1)
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -103,32 +121,30 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_heads // n_kv, dim=2)
 
 
-def _no_cross(memory):
-    if memory is not None:
-        raise NotImplementedError(
-            "cross-attention over encoder memory (whisper) is not ported "
-            "yet: ROADMAP queue 1, item 9")
-
-
 def attention_train(p, x, *, n_heads, n_kv, d_head, causal=True, window=0,
                     softcap=0.0, rope_theta=1e4, pos0=0, memory=None):
     """Full-sequence attention (train / prefill) through the flash kernel.
 
-    Queries sit at positions pos0 + i, keys at i, as in the reference."""
-    _no_cross(memory)
+    Queries sit at positions pos0 + i, keys at i, as in the reference.
+    ``memory`` (B, S_kv, d), an encoder's output, makes it cross-attention
+    (whisper's decoder): keys and values are projected from it, neither
+    side is rotated, and every query sees every key (not causal)."""
     b, s, _ = x.shape
     q = _proj_in(x, p["wq"])
-    k = _proj_in(x, p["wk"])
-    v = _proj_in(x, p["wv"])
-    pos = pos0 + torch.arange(s, device=x.device)[None, :]
-    q = rope(q, pos.expand(b, s), rope_theta)
-    kpos = torch.arange(s, device=x.device)[None, :]
-    k = rope(k, kpos.expand(b, s), rope_theta)
+    src = memory if memory is not None else x
+    k = _proj_in(src, p["wk"])
+    v = _proj_in(src, p["wv"])
+    if memory is None:
+        pos = pos0 + torch.arange(s, device=x.device)[None, :]
+        q = rope(q, pos.expand(b, s), rope_theta)
+        kpos = torch.arange(s, device=x.device)[None, :]
+        k = rope(k, kpos.expand(b, s), rope_theta)
     k = _repeat_kv(k, n_heads)
     v = _repeat_kv(v, n_heads)
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, softcap=softcap, q_offset=pos0)
+        causal=causal and memory is None, window=window, softcap=softcap,
+        q_offset=pos0)
     return _proj_out(out.transpose(1, 2), p["wo"])          # (B, S, d)
 
 
@@ -143,24 +159,32 @@ def attention_decode(p, x1, cache_k, cache_v, pos: int, *, n_heads, n_kv,
     copies; the row it writes is the same, clamped into the cache as
     ``dynamic_update_slice`` clamps).  Attention is fp32 einsum and softmax
     over all S_max rows with the -1e30 sentinel; the output is cast to x's
-    dtype before ``wo``.  Returns (y (B, 1, d), cache_k, cache_v)."""
-    _no_cross(memory)
+    dtype before ``wo``.  With ``memory`` (cross-attention) the keys and
+    values are projected from it again on every call, as the reference
+    does, nothing is rotated or masked, and the caches (which may be
+    None) come back untouched.  Returns (y (B, 1, d), cache_k, cache_v)."""
     b = x1.shape[0]
     q = _proj_in(x1, p["wq"])
-    posb = torch.full((b, 1), pos, dtype=torch.int64, device=x1.device)
-    q = rope(q, posb, rope_theta)
-    k1 = rope(_proj_in(x1, p["wk"]), posb, rope_theta)
-    v1 = _proj_in(x1, p["wv"])
-    s_kv = cache_k.shape[1]
-    row = min(max(int(pos), 0), s_kv - 1)
-    cache_k[:, row] = k1[:, 0].to(cache_k.dtype)
-    cache_v[:, row] = v1[:, 0].to(cache_v.dtype)
-    kpos = torch.arange(s_kv, device=x1.device)
-    mask = kpos <= pos
-    if window > 0:
-        mask &= kpos > pos - window
-    kk = _repeat_kv(cache_k, n_heads)
-    vv = _repeat_kv(cache_v, n_heads)
+    if memory is None:
+        posb = torch.full((b, 1), pos, dtype=torch.int64, device=x1.device)
+        q = rope(q, posb, rope_theta)
+        k1 = rope(_proj_in(x1, p["wk"]), posb, rope_theta)
+        v1 = _proj_in(x1, p["wv"])
+        s_kv = cache_k.shape[1]
+        row = min(max(int(pos), 0), s_kv - 1)
+        cache_k[:, row] = k1[:, 0].to(cache_k.dtype)
+        cache_v[:, row] = v1[:, 0].to(cache_v.dtype)
+        keys, vals = cache_k, cache_v
+        kpos = torch.arange(s_kv, device=x1.device)
+        mask = kpos <= pos
+        if window > 0:
+            mask &= kpos > pos - window
+    else:
+        keys = _proj_in(memory, p["wk"])
+        vals = _proj_in(memory, p["wv"])
+        mask = torch.ones(keys.shape[1], dtype=torch.bool, device=x1.device)
+    kk = _repeat_kv(keys, n_heads)
+    vv = _repeat_kv(vals, n_heads)
     logits = torch.einsum("bqhk,bshk->bhqs", q.to(torch.float32),
                           kk.to(torch.float32)) / (d_head ** 0.5)
     if softcap > 0:
@@ -183,12 +207,12 @@ def init_mlp(generator, d, d_ff, act="swiglu", *, device,
 
 
 def mlp(p, x, act="swiglu"):
-    h = x @ p["wi"]
+    h = matmul(x, p["wi"])
     if act == "swiglu":
-        h = F.silu(h) * (x @ p["wg"])
+        h = F.silu(h) * matmul(x, p["wg"])
     else:
         h = F.gelu(h, approximate="tanh")          # jax.nn.gelu's default
-    return h @ p["wo"]
+    return matmul(h, p["wo"])
 
 
 # ------------------------------------------------------------- embedding ---

@@ -10,7 +10,9 @@ versions.  Flash attention: rtol/atol 5e-4 in fp32 (the reference's own)
 and one bf16 rounding in bf16 (rtol 2^-7, atol 1e-3): the kernel and the
 plain version start from the same bf16 inputs, accumulate in fp32 and
 round the output once.  The LM card against CPU: 1e-4 (full fp32, TF32
-off).  Sharded serving card against CPU: exact on integer keys; the streaming
+off), 1e-3 for xlstm's smoke model; its Mamba, MoE, mLSTM and sLSTM
+modules 1e-5 (the mLSTM forward past one chunk 1e-4), with MoE routing
+identical.  Sharded serving card against CPU: exact on integer keys; the streaming
 index and its snapshots and WAL likewise.  The tuner's GP fit card against CPU: 1e-3 of each field's largest
 magnitude; its (m)EHVI scores 1e-5.
 """
@@ -779,6 +781,136 @@ def test_card_lm_equals_cpu_lm(card):
                          generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(M.forward(gpu, toks.to(card)).cpu(),
                                M.forward(cpu, toks), rtol=1e-4, atol=1e-4)
+    prompts = [np.arange(n, dtype=np.int32) * 7 % cfg.vocab
+               for n in (9, 3, 5)]
+    outs = {}
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        eng = engine.ServeEngine(model, cfg, batch_slots=2, max_seq=32)
+        outs[dev] = [r.out for r in eng.run(
+            [engine.Request(rid=i, prompt=p, max_new=4)
+             for i, p in enumerate(prompts)])]
+    assert outs["cuda"] == outs["cpu"]
+
+
+# The new mixers on the card against the CPU (fp32, TF32 off): 1e-5 at
+# module level, 1e-4 for whole smoke models, 1e-3 for xlstm (its mLSTM
+# stack is ill-conditioned in fp32: tests/test_torch_xlstm.py).
+LM_TOL = {"xlstm_350m": 1e-3}
+
+
+def _twin_modules(cpu_params, card):
+    return {k: v.to(card) for k, v in cpu_params.items()}
+
+
+@pytest.mark.parametrize("e", [8, 16])
+def test_card_moe_equals_cpu(card, e):
+    """Routing identical (expert ids, order, kept slots) with drops forced
+    by capacity_factor 0.5, output 1e-5; deterministic on the card."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(e)
+    p = moe.init_moe(g, 64, 96, e, device="cpu", dtype=torch.float32)
+    x = torch.randn(200, 64, generator=g)
+    pc = _twin_modules(p, card)
+    kw = dict(n_experts=e, top_k=2, capacity_factor=0.5)
+    rc, rg = moe.route(p, x, **kw), moe.route(pc, x.to(card), **kw)
+    assert not bool(rc.keep.all())
+    for f in ("top_idx", "order", "slot", "keep"):
+        assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
+    want = moe.moe_ffn(p, x, **kw)
+    got = moe.moe_ffn(pc, x.to(card), **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(moe.moe_ffn(pc, x.to(card), **kw), got)
+
+
+def test_card_mamba_equals_cpu(card):
+    """Forward across two chunks with a padded tail, then ten decode
+    steps with the fp32 state."""
+    from repro_torch.models import mamba
+    g = torch.Generator().manual_seed(1)
+    p = mamba.init_mamba(g, 64, device="cpu", dtype=torch.float32)
+    pc = _twin_modules(p, card)
+    x = torch.randn(2, 300, 64, generator=g)
+    torch.testing.assert_close(mamba.mamba_forward(pc, x.to(card)).cpu(),
+                               mamba.mamba_forward(p, x), rtol=1e-5,
+                               atol=1e-5)
+    cc, cg = mamba.init_mamba_cache(p, 2), mamba.init_mamba_cache(pc, 2)
+    for t in range(10):
+        yc, cc = mamba.mamba_decode_step(p, x[:, t:t + 1], cc)
+        yg, cg = mamba.mamba_decode_step(pc, x[:, t:t + 1].to(card), cg)
+        torch.testing.assert_close(yg.cpu(), yc, rtol=1e-5, atol=1e-5)
+    for k in cc:
+        torch.testing.assert_close(cg[k].cpu(), cc[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mixer", ["mlstm", "slstm"])
+def test_card_xlstm_equals_cpu(card, mixer):
+    from repro_torch.models import xlstm
+    g = torch.Generator().manual_seed(2)
+    p = getattr(xlstm, f"init_{mixer}")(g, 64, 4, device="cpu",
+                                        dtype=torch.float32)
+    pc = _twin_modules(p, card)
+    x = torch.randn(2, 140 if mixer == "mlstm" else 20, 64, generator=g)
+    fwd = getattr(xlstm, f"{mixer}_forward")
+    torch.testing.assert_close(fwd(pc, x.to(card)).cpu(), fwd(p, x),
+                               rtol=1e-4, atol=1e-4)
+    init = getattr(xlstm, f"init_{mixer}_cache")
+    step = getattr(xlstm, f"{mixer}_decode_step")
+    cc, cg = init(p, 2), init(pc, 2)
+    for t in range(8):
+        yc, cc = step(p, x[:, t:t + 1], cc)
+        yg, cg = step(pc, x[:, t:t + 1].to(card), cg)
+        torch.testing.assert_close(yg.cpu(), yc, rtol=1e-5, atol=1e-5)
+    for k in cc:
+        torch.testing.assert_close(cg[k].cpu(), cc[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "xlstm_350m",
+                                  "grok_1_314b", "arctic_480b",
+                                  "whisper_small", "llava_next_34b"])
+def test_card_lm_families_equal_cpu(card, arch):
+    """Smoke models: the card forward (with whisper's enc_input, llava's
+    patches) == the CPU's, one flash launch per attention call; decode
+    with whisper's enc_memory likewise; decoder-only engines give
+    identical tokens."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine
+    cfg = registry.get_config(arch).smoke()
+    tol = LM_TOL.get(arch, 1e-4)
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=g)
+    ex = {}
+    if cfg.is_encdec:
+        ex["enc_input"] = torch.randn(2, cfg.enc_seq, cfg.d_model,
+                                      generator=g) * 0.05
+    if cfg.vision_stub:
+        ex["patches"] = torch.randn(2, cfg.n_patches, cfg.d_model,
+                                    generator=g) * 0.05
+    n_attn = sum(gpu.kind(i).mixer == "attn" for i in range(len(gpu.layers)))
+    calls = n_attn * (2 if cfg.is_encdec else 1) + (
+        cfg.n_enc_layers if cfg.is_encdec else 0)
+    before = fa.LAUNCHES
+    got = M.forward(gpu, toks.to(card),
+                    extras={k: v.to(card) for k, v in ex.items()})
+    assert fa.LAUNCHES == before + calls
+    torch.testing.assert_close(got.cpu(), M.forward(cpu, toks, extras=ex),
+                               rtol=tol, atol=tol)
+    mem = ({"enc_memory": M.encode(cpu, ex["enc_input"])}
+           if cfg.is_encdec else {})
+    memg = {k: v.to(card) for k, v in mem.items()}
+    cc, cg = M.init_cache(cpu, 2, 14), M.init_cache(gpu, 2, 14)
+    for t in range(12):
+        lc, cc = M.decode_step(cpu, toks[:, t:t + 1], cc, t, extras=mem)
+        lg, cg = M.decode_step(gpu, toks[:, t:t + 1].to(card), cg, t,
+                               extras=memg)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=tol, atol=tol)
+    if cfg.is_encdec:
+        return
     prompts = [np.arange(n, dtype=np.int32) * 7 % cfg.vocab
                for n in (9, 3, 5)]
     outs = {}

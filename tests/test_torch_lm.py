@@ -1,4 +1,5 @@
-"""Port parity for the LM substrate's dense-attention serving path.
+"""Port parity for the LM substrate's dense-attention serving path, and
+the whole-model helpers the other LM parity files share.
 
 The reference's ``init_params`` tree goes through
 ``convert.lm_params_from_numpy``; the same NumPy tokens then go through
@@ -10,6 +11,11 @@ sum the projections in another order), identical engine tokens.  The
 engine cases include mixed prompt lengths, where admitting a request
 rewrites the other slots' cache rows at the shared ``pos``: the port
 must reproduce that, not fix it.
+
+``Pairs`` (one reference tree per arch, built once per test module) and
+the ``check_*`` helpers below run the same checks for the other archs
+(tests/test_torch_{moe, mamba, xlstm, encdec}.py): every cache leaf of
+every mixer against the reference's ``cache["sub{j}"][leaf][g]``.
 """
 import dataclasses
 
@@ -52,6 +58,186 @@ def _tokens(vocab, b, s, seed=5):
         np.int32)
 
 
+# ------------------------------------------------- shared whole-model checks
+class Pairs:
+    """Reference trees and their port twins, one per (arch, seed), built
+    on first use: a test module holds one instance in a module fixture."""
+
+    def __init__(self):
+        self._built = {}
+
+    def __call__(self, arch, seed=3):
+        if (arch, seed) not in self._built:
+            self._built[arch, seed] = _pair(arch, seed)
+        return self._built[arch, seed]
+
+
+def drop_free(tcfg):
+    """The capacity at which no MoE assignment drops (the reference's
+    ``tests/test_models.py::test_decode_matches_forward``)."""
+    if not tcfg.n_experts:
+        return tcfg
+    return dataclasses.replace(tcfg, moe_capacity_factor=float(
+        tcfg.n_experts) / tcfg.experts_per_tok)
+
+
+def extras_for(cfg, b, seed=11):
+    """NumPy ``enc_input`` / ``patches`` for an encoder-decoder or
+    vision-stub config (the reference test's 0.05-scaled normals)."""
+    r = np.random.default_rng(seed)
+    ex = {}
+    if cfg.is_encdec:
+        ex["enc_input"] = (r.normal(size=(b, cfg.enc_seq, cfg.d_model))
+                           * 0.05).astype(np.float32)
+    if cfg.vision_stub:
+        ex["patches"] = (r.normal(size=(b, cfg.n_patches, cfg.d_model))
+                         * 0.05).astype(np.float32)
+    return ex
+
+
+def check_cache(tc, jc, period, tol=TOL):
+    """Every leaf of every layer's state against the reference's stacked
+    cache (fp32 in both packages)."""
+    for i, c in enumerate(tc):
+        g, j = divmod(i, period)
+        ref = jc[f"sub{j}"]
+        assert set(c) == set(ref), (i, sorted(c), sorted(ref))
+        for leaf, t in c.items():
+            assert t.dtype == torch.float32, (i, leaf, t.dtype)
+            np.testing.assert_allclose(t.numpy(), np.asarray(ref[leaf][g]),
+                                       err_msg=f"layer {i} {leaf}", **tol)
+
+
+def check_forward(pair, b=2, s=12, seed=5, tol=TOL):
+    """Prefill logits (with the config's extras) == the reference's; the
+    flash kernel is never launched on CPU tensors."""
+    jcfg, params, tcfg, model = pair
+    toks = _tokens(jcfg.vocab, b, s, seed)
+    ex = extras_for(jcfg, b)
+    want = np.asarray(JM.forward(params, jcfg, jnp.asarray(toks),
+                                 extras={k: jnp.asarray(v)
+                                         for k, v in ex.items()},
+                                 remat=False))
+    before = tfa.LAUNCHES
+    got = TM.forward(model, torch.from_numpy(toks),
+                     extras={k: torch.from_numpy(v) for k, v in ex.items()})
+    assert tfa.LAUNCHES == before
+    assert got.shape == (b, s, jcfg.vocab) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **tol)
+    return got
+
+
+def check_decode(pair, b=2, s=12, seed=5, memory=None, tol=TOL):
+    """``decode_step`` logits at every position and every cache leaf at
+    the end == the reference's (``memory``: the pair of encoder outputs,
+    reference and port, passed as ``extras["enc_memory"]``)."""
+    jcfg, params, tcfg, model = pair
+    toks = _tokens(jcfg.vocab, b, s, seed)
+    jc = JM.init_cache(params, jcfg, b, s + 2)
+    tc = TM.init_cache(model, b, s + 2)
+    jx, tx = ({}, {}) if memory is None else (
+        {"enc_memory": memory[0]}, {"enc_memory": memory[1]})
+    step = jax.jit(lambda p, t, c, pos, ex: JM.decode_step(
+        p, jcfg, t, c, pos, extras=ex))
+    for t in range(s):
+        jl, jc = step(params, jnp.asarray(toks[:, t:t + 1]), jc,
+                      jnp.int32(t), jx)
+        tl, tc = TM.decode_step(model, torch.from_numpy(toks[:, t:t + 1]),
+                                tc, t, extras=tx)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+    check_cache(tc, jc, tcfg.period, tol)
+
+
+def teacher_forced_vs_forward(tree, tcfg, b=2, s=12, seed=9, memory=None):
+    """The reference's own bound, held by the port: decode fed the tokens
+    one by one against the forward, 2e-2, MoE at its drop-free capacity."""
+    cfg = drop_free(tcfg)
+    model = convert.lm_params_from_numpy(tree, cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg.vocab, b, s, seed))
+    ex = {k: torch.from_numpy(v) for k, v in extras_for(cfg, b).items()}
+    full = TM.forward(model, toks, extras=ex)
+    tx = {}
+    if cfg.is_encdec:
+        tx["enc_memory"] = TM.encode(model, ex["enc_input"])
+    cache = TM.init_cache(model, b, s + 2)
+    dec = torch.cat([TM.decode_step(model, toks[:, t:t + 1], cache, t,
+                                    extras=tx)[0] for t in range(s)], dim=1)
+    np.testing.assert_allclose(dec.numpy(), full.numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def check_engine(pair, lengths, slots=2, max_new=5, tol=TOL):
+    """``ServeEngine`` tokens identical, last logits, positions and every
+    cache leaf (the idle slots' recurrent states too) == the reference's."""
+    jcfg, params, tcfg, model = pair
+    r = np.random.default_rng(sum(lengths))
+    prompts = [r.integers(0, jcfg.vocab, n).astype(np.int32)
+               for n in lengths]
+    jeng = JE.ServeEngine(params, jcfg, batch_slots=slots, max_seq=64)
+    want = jeng.run([JE.Request(rid=i, prompt=p, max_new=max_new)
+                     for i, p in enumerate(prompts)])
+    teng = TE.ServeEngine(model, tcfg, batch_slots=slots, max_seq=64)
+    got = teng.run([TE.Request(rid=i, prompt=p, max_new=max_new)
+                    for i, p in enumerate(prompts)])
+    for a, b in zip(want, got):
+        assert b.done and b.out == a.out
+        np.testing.assert_allclose(b._last_logits, a._last_logits, **tol)
+    np.testing.assert_array_equal(teng.pos, jeng.pos)
+    check_cache(teng.cache, jeng.cache, tcfg.period, tol)
+
+
+CONSTANT_LEAVES = {"scale", "conv_b", "dt_bias", "A_log", "D", "fb", "b"}
+
+
+def port_leaves(model):
+    """The port's parameters as the reference's flat leaf paths, stacked
+    over period groups (blocks) and layers (encoder)."""
+    period = model.cfg.period
+    out = {f"embed/{k}": v.numpy() for k, v in model.embed.items()}
+    out["final_norm/scale"] = model.final_norm["scale"].numpy()
+    stacks = {}
+    for i, layer in enumerate(model.layers):
+        for mod, ps in layer.items():
+            for k, v in ps.items():
+                stacks.setdefault(f"blocks/sub{i % period}/{mod}/{k}",
+                                  []).append(v.numpy())
+    for layer in model.encoder or []:
+        for mod, ps in layer.items():
+            for k, v in ps.items():
+                stacks.setdefault(f"encoder/{mod}/{k}", []).append(
+                    v.numpy())
+    if model.enc_norm is not None:
+        out["enc_norm/scale"] = model.enc_norm["scale"].numpy()
+    out.update({k: np.stack(v) for k, v in stacks.items()})
+    return out
+
+
+def ref_leaves(tree):
+    return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def check_init(arch, seed=0):
+    """``init_params`` from a torch generator: the reference's tree, leaf
+    for leaf, in shape; its constants equal (``A_log``'s log to one ulp:
+    XLA's CPU log of 7 is one ulp from the correctly rounded value torch
+    gives); its random leaves at the reference's scale (std within 15%)."""
+    jcfg = jreg.get_config(arch).smoke()
+    tcfg = treg.get_config(arch).smoke()
+    want = ref_leaves(JM.init_params(jax.random.PRNGKey(seed), jcfg))
+    got = port_leaves(TM.init_params(tcfg, torch.Generator().manual_seed(
+        seed), device="cpu"))
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if name.split("/")[-1] in CONSTANT_LEAVES:
+            np.testing.assert_allclose(g, w, rtol=2e-7, atol=0,
+                                       err_msg=name)
+        elif w.size >= 1000:
+            assert abs(g.std() / w.std() - 1) < 0.15, name
+
+
 @pytest.mark.parametrize("arch", treg.ARCH_IDS)
 def test_configs_match_reference(arch):
     jcfg, tcfg = jreg.get_config(arch), treg.get_config(arch)
@@ -69,14 +255,6 @@ def test_configs_match_reference(arch):
             treg.cell_is_runnable(tcfg, tbase.SHAPES[name])
     assert dataclasses.asdict(jbase.SHAPES[name]) == dataclasses.asdict(
         tbase.SHAPES[name])
-
-
-@pytest.mark.parametrize("arch", ["jamba_v01_52b", "xlstm_350m",
-                                  "grok_1_314b", "whisper_small"])
-def test_unported_mixers_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TM.init_params(treg.get_config(arch).smoke(),
-                       torch.Generator().manual_seed(0), device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
