@@ -8,7 +8,8 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
 1. device     -- nvidia-smi name and power limit, torch/CUDA versions, TF32.
 2. build      -- nvcc builds of every source under
                  ``src/repro_torch/kernels/csrc/`` (``distance.cu``,
-                 ``flash_attention.cu``, ``prune.cu``), started together;
+                 ``flash_attention.cu``, ``flash_attention_bwd.cu``,
+                 ``prune.cu``), started together;
                  ptxas's registers, stack and spills for each distance,
                  flash and prune kernel (``pairwise_ptxas`` names each
                  pairwise body by its template arguments; ``flash_ptxas``
@@ -56,14 +57,24 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  body's largest L (1024, 1025: the register body), on
                  geometric and random inputs, m_limit reached and not,
                  timed at both path shapes (device time in a CUDA graph)
-                 beside the bytes its data needs.
-4. exact      -- an integer-coordinate corpus (n=1000, d=128, coordinates
-                 in [-4, 4]) built with each family's 4 configs (Vamana,
-                 HNSW, NSG): the fused build on the card == the per_batch
-                 build on the card == the fused build on the CPU (graphs,
-                 edge lengths, counters, entry; HNSW's levels and top
-                 layer); multi == single for the configs in the group's
-                 degree bucket.
+                 beside the bytes its data needs; the flash backward
+                 (``flash_attention_bwd``: the forward's log-sum-exp, then
+                 the D, dk / dv and dq kernels) against autograd of the
+                 plain forward at every FA_CASES case, fp32 (1e-4 of each
+                 gradient's largest magnitude) and bf16 (2e-2), dh 128 and
+                 224, timed at granite's training shape (2, 32, 4096, 128)
+                 causal in bf16 and fp32 and at gemma2's (1, 16, 4096,
+                 224) at window 4096 and soft-cap 50, beside the plain
+                 backward, SDPA's backward at soft-cap 0 and the bound of
+                 5 products on the tensor cores.
+4. exact      -- (run after tune) an integer-coordinate corpus (n=2000,
+                 d=128, coordinates in [-4, 4]) built with each family's
+                 4 configs (Vamana, HNSW, NSG): the fused build on the
+                 card == the per_batch build on the card == the fused
+                 build on the CPU (graphs, edge lengths, counters, entry;
+                 HNSW's levels and top layer); multi == single for the
+                 configs in the group's degree bucket.  The CPU builds
+                 are the CPU mirror's (below).
 5. main       -- FastPGT's estimation path at SIFT's width d=128: clustered
                  data (n=25k by default; the paper's corpora hold 1M
                  vectors), exact ground truth, then grouped (group_size=4,
@@ -84,7 +95,7 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  NSG (K, L, M), 4 configs each in the main path's degree
                  bucket, grouped and baseline fused (their per_batch
                  builds are held equal to the fused ones in exact, at
-                 n=1000, and not run here for time).  Asserted: identical
+                 n=2000, and not run here for time).  Asserted: identical
                  recall sweeps grouped / baseline, an ESO+EPO saving, best
                  recall@10 >= 0.9, no stage function called from Python
                  after capture (HNSW's eager ef=1 descent told apart), one
@@ -144,7 +155,8 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  distances and counters under scatter-gather, routed p=2
                  (dense and hash), shard 1 dead, sq8 and 16 tombstones,
                  and the flat-graph search at p=S (``_fused_routed``, fp32
-                 and sq8) == scatter-gather on each device; k-means twice
+                 and sq8) == scatter-gather on each device (the CPU's
+                 side is the CPU mirror's, below); k-means twice
                  on the card (the same
                  partition) and its contract (every id once, none above
                  ceil(n/S * 1.05), none empty).  Reported: the two k-means
@@ -269,6 +281,42 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  448-token prompt (exactly 36 flash launches), the
                  encoder alone, and 32 ``decode_step``s with
                  ``enc_memory``.
+17. train_exact -- all ten archs' smoke configs at vocab 512 in fp32, 2
+                 microbatches, remat: 2 train steps on the card and on
+                 the CPU from one ``init_state``, losses and every leaf
+                 of the state to 1e-4 (xlstm, SIGN_NOISE: the first
+                 step's loss and state to 1e-3, a parameter excused where
+                 the two gradients' signs differ within 1e-3 of 0, and
+                 the second step's loss within 5x the rms spread that
+                 one-ulp moves of the initial weights give on the CPU,
+                 LOSS_NOISE), each step's flash forward and backward
+                 launches exact (0 for xlstm); one step each with int8 and
+                 top-k gradient compression (granite; entries the two
+                 devices compressed differently, at most 0.1% of a leaf,
+                 excused).
+18. train_resume -- ``launch.train.main(--arch granite_3_8b --smoke
+                 --steps 20)`` on the card (its loss falls), then
+                 ``run_resumable`` with a failure injected at step 7 and a
+                 checkpoint every 5 steps: bit for bit the uninterrupted
+                 run's state.
+19. lm_train_width -- granite_3_8b at its full widths cut to 8 of its 40
+                 layers (2.00 B parameters), bf16 compute, fp32 master
+                 weights and AdamW moments, remat, 8 x 4096 tokens a step
+                 in 4 microbatches (tokens from SyntheticLM at vocab 4096):
+                 a warm-up and 3 timed steps (step seconds, tokens/s, the
+                 model FLOPs' share of 989 TFLOP/s, ms in forward,
+                 backward and optimizer by CUDA events, peak memory,
+                 exactly 64 flash forward and 32 backward launches a
+                 step), a profiled step's idle share; before it one fp32
+                 step at full width on 2 layers, B = 1, S = 256, the card
+                 against the CPU (loss 1e-4, moments normwise 1e-4).
+
+The CPU mirror: the CPU side of exact, of shard_exact and of xlstm's
+noise in train_exact runs in a second process of this script
+(``--cpu-mirror PATH``, no CUDA device, 4 intra-op threads), started after
+build, while the card runs kernels, main, hnsw, nsg and tune; a
+``cpu_mirror`` line gives its seconds and how long the script waited for
+it.  It dies with the script.
 
 A ``lap`` line after each group of phases gives its wall seconds and
 the running total, and the done line repeats them.
@@ -276,8 +324,8 @@ the running total, and the done line repeats them.
 Launch counters are zeroed just before each path (main, hnsw, nsg, the
 two tune runs, the serving ground truth ``serve_gt``, serve,
 serve_sharded, stream_exact, stream and its ground truth ``stream_gt``,
-and each LM phase) and read just after; every kernel of that path must
-have launched.
+each LM phase and each training phase) and read just after; every
+kernel of that path must have launched.
 
 ``--profile N`` runs only device, build and a profile of one fused
 grouped build of N points (after a first build that captures its step):
@@ -344,6 +392,9 @@ TUNE = dict(budget=20, batch=10, k=10, seed=0, scale=0.25, mc_samples=48,
             build_impl="fused", build_batch_size=256, ef_grid=EF_GRID)
 KNNG_BLOCK = 1024              # knng.exact_knn's block of query rows
 EXACT_N = 2000                 # integer corpus of the exact phase
+# The CPU mirror process (exact's CPU builds, shard_exact's CPU side,
+# xlstm's one-ulp runs) shares the host's 8 cores with the card's driver
+MIRROR_THREADS = 4
 # The serving cell: one attention head of a 128K-token context at head
 # width 128 (Llama-3-8B), keys from the main path's geometry, the index's
 # default ip metric, the reference's serving knobs (hash state, W=4).
@@ -398,6 +449,44 @@ WHISPER_PROMPT, WHISPER_STEPS = 448, 32
 # stack of mLSTM layers is ill-conditioned in fp32 (the reference's own
 # fp32 run strays from float64 as far: tools/witness_xlstm_conditioning.py)
 FAMILY_TOL = {"xlstm_350m": 1e-3}
+# The training phases.  flash_bwd (in the kernels line): the backward
+# kernels against autograd of the plain forward, 1e-4 (fp32) / 2e-2 (bf16)
+# of each gradient's largest magnitude (the plain side computes from the
+# same inputs in fp32; the kernel rounds each gradient to the input type
+# once).  train_exact: the ten smoke archs at vocab 512, fp32.
+FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_EXACT = dict(b=4, s=32, steps=2, microbatches=2)
+# xlstm_350m's smoke model is ill-conditioned in fp32 (card and CPU logits
+# 1.6e-3 apart, FAMILY_TOL), and AdamW's first update, ~lr * sign(g),
+# carries that into its second step: its first step moved mlstm/down by
+# 1.96e-3 = ~2 lr more on one device (a gradient entry at its noise level
+# took opposite signs), and the second-step losses read 28.5346 on the card
+# and 28.4756 on the CPU.  So its first step is held at tol, a parameter
+# excused where the two first moments (mu = (1 - b1) g, linear in the
+# gradient) differ in sign within tol of 0, and its second-step loss
+# within LOSS_NOISE["factor"] times the rms spread of the CPU's own
+# second-step losses from LOSS_NOISE["seeds"] copies of the initial weights
+# moved one ulp each (computed by the CPU mirror in every run).
+SIGN_NOISE = ("xlstm_350m",)
+LOSS_NOISE = dict(seeds=8, factor=5.0)
+# train_exact's compressed steps: the gradients differ by rounding between
+# the devices, so an entry near an int8 rounding edge or at the top-k
+# threshold can be compressed differently (granite's int8 residual read
+# one step of 2.0e-4 apart there); at most this share of a leaf
+COMPRESSION_FLIPS = 1e-3
+# lm_train_width: granite_3_8b at its full widths (d_model 4096, 32 / 8
+# heads of 128, d_ff 12800, vocab 49155), 40 layers cut to 8 (2.00 B
+# parameters: fp32 master weights and two AdamW moments for all 40 would
+# be 134 GB), bf16 compute, remat, train_4k's sequence, global batch 8 in
+# 4 microbatches; tokens from SyntheticLM at vocab 4096 (at 49155 its
+# three transition matrices would take 19 GB each on the host); the card
+# against the CPU at full width on 2 layers, B = 1, S = 256, fp32.
+TRAIN_ARCH = "granite_3_8b"
+TRAIN_LAYERS = 8
+TRAIN_S, TRAIN_B, TRAIN_MB = 4096, 8, 4
+TRAIN_DATA_VOCAB = 4096
+TRAIN_STEPS = 3
+TRAIN_CHECK = dict(layers=2, b=1, s=256)
 # lm_mixers_width's full-width MoE, card against CPU, as a share of its
 # largest output: the fp32 card read 4.2e-6 (PERF.md §6); a few times that,
 # and well under what TF32 products give (read beside it in the same run)
@@ -1399,12 +1488,13 @@ def phase_kernels(n_corpus: int) -> list[dict]:
            _gather_sq8_row(gd, ops, ref, gen),
            _pairwise_sq8_row(l2, ops, ref, mlib, gen),
            _flash_row(fa, gen),
-           _prune_row(prk, gen)]
+           _prune_row(prk, gen),
+           _flash_bwd_row(fa, gen)]
     # the graph harness's own floor: a 1-element fill_ per captured call,
     # beside the gathers' device times
     one = torch.zeros(1, device="cuda")
     floor, floor_spread = graph_ms(lambda: one.fill_(1.0))
-    for row in out[1:3] + out[5:]:
+    for row in out[1:3] + out[5:6]:
         row["graph_floor_ms"], row["graph_floor_ms_spread"] = (floor,
                                                                floor_spread)
     torch.cuda.empty_cache()
@@ -1439,32 +1529,56 @@ def _single_equals_multi(family: str, multi, single, i: int, M: int) -> bool:
     return torch.equal(multi.g.ids[i][:, :M], single.g.ids[0][:, :M])
 
 
-def phase_exact() -> None:
-    """EXACT_N integer data, for each family (Vamana, HNSW, NSG): the fused
-    build on the card == the per_batch build on the card == the fused
-    build on the CPU (ids, edge lengths, counters, entry; HNSW's levels
-    and top layer too); multi == single on the card for the configs in
-    the group's degree bucket."""
+def _exact_inputs():
+    """The exact phase's integer corpus and each family's build params."""
     import torch
-    from repro_torch.core import graph
     from repro_torch.core.tuner import params as pspace
     gen = torch.Generator().manual_seed(1)
     data = torch.clamp(torch.round(torch.randn((EXACT_N, 128),
                                                generator=gen) * 2), -4, 4)
+    return data, {family: [pspace.to_build_params(family, c) for c in cfgs]
+                  for family, cfgs in (("vamana", CONFIGS),
+                                       ("hnsw", HNSW_CONFIGS),
+                                       ("nsg", NSG_CONFIGS))}
+
+
+EXACT_KW = dict(seed=0, use_eso=True, use_epo=True, batch_size=256)
+
+
+def exact_cpu_builds() -> dict:
+    """The exact phase's fused builds on the CPU, by family (the CPU
+    mirror's part): (build, seconds)."""
+    from repro_torch.core.tuner import params as pspace
+    data, params = _exact_inputs()
     out = {}
-    for family, cfgs in (("vamana", CONFIGS), ("hnsw", HNSW_CONFIGS),
-                         ("nsg", NSG_CONFIGS)):
-        ps = [pspace.to_build_params(family, c) for c in cfgs]
-        kw = dict(seed=0, use_eso=True, use_epo=True, batch_size=256)
+    for family, ps in params.items():
+        t0 = time.perf_counter()
+        b = pspace.build_many(family, data, ps, build_impl="fused",
+                              device="cpu", **EXACT_KW)
+        out[family] = (b, time.perf_counter() - t0)
+    return out
+
+
+def phase_exact(mirror) -> None:
+    """EXACT_N integer data, for each family (Vamana, HNSW, NSG): the fused
+    build on the card == the per_batch build on the card == the fused
+    build on the CPU (ids, edge lengths, counters, entry; HNSW's levels
+    and top layer too; the CPU builds come from the CPU mirror); multi ==
+    single on the card for the configs in the group's degree bucket."""
+    from repro_torch.core import graph
+    from repro_torch.core.tuner import params as pspace
+    data, params = _exact_inputs()
+    out = {}
+    for family, ps in params.items():
         builds, secs = {}, {}
-        for name, dev, impl in (("card_fused", "cuda", "fused"),
-                                ("card_per_batch", "cuda", "per_batch"),
-                                ("cpu_fused", "cpu", "fused")):
+        for name, impl in (("card_fused", "fused"),
+                           ("card_per_batch", "per_batch")):
             t0 = time.perf_counter()
             builds[name] = pspace.build_many(family, data, ps,
-                                             build_impl=impl, device=dev,
-                                             **kw)
+                                             build_impl=impl, device="cuda",
+                                             **EXACT_KW)
             secs[name] = time.perf_counter() - t0
+        builds["cpu_fused"], secs["cpu_fused"] = mirror.get()["exact"][family]
         gpu = builds["card_fused"]
         for name in ("card_per_batch", "cpu_fused"):
             if not _same_graphs(gpu, builds[name]):
@@ -1482,7 +1596,7 @@ def phase_exact() -> None:
         for i in same:
             single = pspace.build_many(family, data, [ps[i]], build_impl=
                                        "fused", device="cuda",
-                                       **dict(kw, use_eso=False,
+                                       **dict(EXACT_KW, use_eso=False,
                                               use_epo=False))
             if not _single_equals_multi(family, gpu, single, i, ps[i].M):
                 raise AssertionError(f"{family}: multi != single for "
@@ -1493,7 +1607,77 @@ def phase_exact() -> None:
             out[family]["top"] = gpu.g.top
     emit("exact", n=EXACT_N, d=128, identical_ids=True, identical_dist=True,
          identical_counters=True,
-         compared=["card_fused", "card_per_batch", "cpu_fused"], **out)
+         compared=["card_fused", "card_per_batch", "cpu_fused"],
+         cpu_builds_in="the CPU mirror process", **out)
+
+
+class CpuMirror:
+    """The CPU side of three equalities -- the exact phase's fused CPU
+    builds, shard_exact's partitions, builds and searches on the CPU, and
+    train_exact's xlstm runs from perturbed weights -- computed by a
+    second process (``chip_smoke.py --cpu-mirror PATH``, no CUDA device,
+    MIRROR_THREADS intra-op threads), started here, while the card runs
+    the main path.  ``get()`` waits for it and returns its results.  The
+    process dies with this one (``cpu_mirror`` asks the kernel for that),
+    so a run that fails leaves nothing behind."""
+
+    def __init__(self):
+        self.path = os.path.join(HERE, "build", "cpu_mirror.pkl")
+        self.log_path = self.path[:-len(".pkl")] + ".log"
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(self.path)
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cpu-mirror",
+                 self.path], stdout=log, stderr=subprocess.STDOUT,
+                stdin=subprocess.DEVNULL, cwd=HERE,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                         CHIP_SMOKE_PARENT=str(os.getpid())))
+        self.out = None
+
+    def get(self) -> dict:
+        if self.out is None:
+            import pickle
+            t0 = time.perf_counter()
+            rc = self.proc.wait()
+            waited = time.perf_counter() - t0
+            if rc != 0:
+                with open(self.log_path) as f:
+                    tail = f.read()[-3000:]
+                raise RuntimeError(f"CPU mirror exited {rc}:\n{tail}")
+            with open(self.path, "rb") as f:
+                self.out = pickle.load(f)
+            emit("cpu_mirror", seconds=self.out["seconds"],
+                 parts_s=self.out["parts_s"], threads=MIRROR_THREADS,
+                 waited_s=waited)
+        return self.out
+
+
+def cpu_mirror(path: str) -> int:
+    """``--cpu-mirror PATH``: CpuMirror's process.  Pickles its results to
+    PATH (by a rename, so a reader never sees half a file)."""
+    import pickle
+    import signal
+    import torch
+    # PR_SET_PDEATHSIG: killed when the script that started it ends
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    if str(os.getppid()) != os.environ.get("CHIP_SMOKE_PARENT"):
+        return 1                     # it ended before the request
+    torch.set_num_threads(MIRROR_THREADS)
+    out, parts = {}, {}
+    t0 = time.perf_counter()
+    for name, fn in (("exact", exact_cpu_builds),
+                     ("shard_exact", lambda: shard_exact_side("cpu")),
+                     ("xlstm_noise", xlstm_noise)):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        parts[name] = time.perf_counter() - t1
+    out.update(seconds=time.perf_counter() - t0, parts_s=parts)
+    with open(path + ".part", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(path + ".part", path)
+    return 0
 
 
 def zero_counts(counters: dict) -> None:
@@ -2369,17 +2553,11 @@ def kmeans_reference_checks(device: str = "cuda") -> dict:
                     shard_sizes=sg.counts.tolist()))
 
 
-def phase_shard_exact() -> None:
-    """Sharded serving card == CPU on the scale-1 integer serving corpus
-    (n=2000, d=128, ip), S=4: chunked and random placement, each with the
-    per-shard exact KNNG and with fused per-shard Vamana (build_index):
-    the ShardedGraph fields, then ``sharded_knn_search``'s pools,
-    distances and counters under scatter-gather, routed p=2 (dense and
-    hash), shard 1 dead, sq8 and 16 tombstones, and the flat-graph search
-    at p=S (fp32 and sq8) == scatter-gather on each device; k-means on the card
-    twice (the same partition) and its contract; and, reported, the two
-    k-means checks the reference fails (``kmeans_reference_checks``)."""
-    import dataclasses
+def shard_exact_side(dev: str) -> dict:
+    """shard_exact's work on one device (the CPU's is the CPU mirror's):
+    for each placement and source, the ShardedGraph, its build seconds,
+    ``sharded_knn_search``'s result for each case and the flat-graph
+    search at p=S, fp32 and sq8."""
     import numpy as np
     import torch
     from repro_torch.core import graph, search, vamana
@@ -2394,58 +2572,86 @@ def phase_shard_exact() -> None:
                         dtype=torch.int32)[:cfg["tombstones"]]
     cases = dict(scatter_gather={}, routed_2_dense=dict(
         routed_shards=2, visited_impl="dense"), routed_2_hash=dict(
-        routed_shards=2), shard_1_dead=dict(shard_mask=dead), sq8=dict(quantize="sq8"),
-        tombstones=dict(tombstone_ids=tomb))
-    rows, t0 = {}, time.perf_counter()
+        routed_shards=2), shard_1_dead=dict(shard_mask=dead),
+        sq8=dict(quantize="sq8"), tombstones=dict(tombstone_ids=tomb))
+    rows = {}
     for assign in ("chunked", "random"):
         for source in ("knng", "vamana"):
-            sg, build_s = {}, {}
-            for dev in ("cuda", "cpu"):
-                t1 = time.perf_counter()
-                if source == "knng":
-                    sg[dev] = graph.partition(
-                        keys, S, assignment=assign, degree=32, metric="ip",
-                        quantize="sq8", device=dev)
-                else:
-                    sg[dev] = retrieval.build_index(
-                        keys, values, p, metric="ip", num_shards=S,
-                        assign=assign, quantize="sq8", build_impl="fused",
-                        device=dev).shards
-                build_s[dev] = time.perf_counter() - t1
-            for f in dataclasses.fields(sg["cpu"]):
-                if not torch.equal(getattr(sg["cuda"], f.name).cpu(),
-                                   getattr(sg["cpu"], f.name)):
-                    raise AssertionError(f"shard_exact {assign}/{source}: "
-                                         f"card {f.name} != CPU")
-            same, stats, out = {}, {}, {}
+            t1 = time.perf_counter()
+            if source == "knng":
+                sg = graph.partition(keys, S, assignment=assign, degree=32,
+                                     metric="ip", quantize="sq8", device=dev)
+            else:
+                sg = retrieval.build_index(
+                    keys, values, p, metric="ip", num_shards=S,
+                    assign=assign, quantize="sq8", build_impl="fused",
+                    device=dev).shards
+            build_s = time.perf_counter() - t1
+            runs = {}
             for name, kw in cases.items():
                 kw = {"visited_impl": "hash", "expand_width": 4, **kw}
-                res = out[name] = {dev: search.sharded_knn_search(
-                    sg[dev], q, TOP_K, cfg["ef"], metric="ip", **kw)
-                    for dev in sg}
-                same[name] = _identical(res["cuda"], res["cpu"])
-                stats[name] = dict(n_computed=int(res["cuda"].n_computed),
-                                   hops=int(res["cuda"].hops))
-                if not all(same[name].values()):
-                    raise AssertionError(f"shard_exact {assign}/{source} "
-                                         f"{name}: card != CPU "
-                                         f"{same[name]}")
-            for name, base in (("flat_S", "scatter_gather"),
-                               ("flat_S_sq8", "sq8")):
-                flat = {dev: _flat_graph_at_all_shards(
-                    sg[dev], q, TOP_K, cfg["ef"], metric="ip",
-                    quantize=base == "sq8", block=cfg["nq"]) for dev in sg}
-                checks = dict(card_cpu=_identical(flat["cuda"], flat["cpu"]),
-                              **{f"{dev}_scatter_gather": _identical(
-                                  flat[dev], out[base][dev]) for dev in sg})
-                if not all(all(c.values()) for c in checks.values()):
-                    raise AssertionError(f"shard_exact {assign}/{source} "
-                                         f"{name}: {checks}")
-                stats[name] = dict(n_computed=flat["cuda"].n_computed,
-                                   hops=flat["cuda"].hops)
-            rows[f"{assign}/{source}"] = dict(
-                build_s=build_s, counts=sg["cuda"].counts.tolist(),
-                runs=stats)
+                runs[name] = search.sharded_knn_search(
+                    sg, q, TOP_K, cfg["ef"], metric="ip", **kw)
+            flat = {name: _flat_graph_at_all_shards(
+                sg, q, TOP_K, cfg["ef"], metric="ip", quantize=sq8,
+                block=cfg["nq"]) for name, sq8 in (("flat_S", False),
+                                                   ("flat_S_sq8", True))}
+            rows[f"{assign}/{source}"] = dict(sg=sg, build_s=build_s,
+                                              runs=runs, flat=flat)
+    return rows
+
+
+def phase_shard_exact(mirror) -> None:
+    """Sharded serving card == CPU on the scale-1 integer serving corpus
+    (n=2000, d=128, ip), S=4: chunked and random placement, each with the
+    per-shard exact KNNG and with fused per-shard Vamana (build_index):
+    the ShardedGraph fields, then ``sharded_knn_search``'s pools,
+    distances and counters under scatter-gather, routed p=2 (dense and
+    hash), shard 1 dead, sq8 and 16 tombstones, and the flat-graph search
+    at p=S (fp32 and sq8) == scatter-gather on each device (the CPU's side
+    from the CPU mirror); k-means on the card twice (the same partition)
+    and its contract; and, reported, the two k-means checks the reference
+    fails (``kmeans_reference_checks``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import graph
+    cfg = SHARD_EXACT
+    n, S = cfg["n"], cfg["shards"]
+    t0 = time.perf_counter()
+    sides = dict(cuda=shard_exact_side("cuda"),
+                 cpu=mirror.get()["shard_exact"])
+    rows = {}
+    for key, card in sides["cuda"].items():
+        side = dict(cuda=card, cpu=sides["cpu"][key])
+        for f in dataclasses.fields(side["cpu"]["sg"]):
+            if not torch.equal(getattr(card["sg"], f.name).cpu(),
+                               getattr(side["cpu"]["sg"], f.name)):
+                raise AssertionError(f"shard_exact {key}: card {f.name} != "
+                                     f"CPU")
+        stats = {}
+        for name in card["runs"]:
+            res = {dev: side[dev]["runs"][name] for dev in side}
+            same = _identical(res["cuda"], res["cpu"])
+            stats[name] = dict(n_computed=int(res["cuda"].n_computed),
+                               hops=int(res["cuda"].hops))
+            if not all(same.values()):
+                raise AssertionError(f"shard_exact {key} {name}: card != "
+                                     f"CPU {same}")
+        for name, base in (("flat_S", "scatter_gather"),
+                           ("flat_S_sq8", "sq8")):
+            flat = {dev: side[dev]["flat"][name] for dev in side}
+            checks = dict(card_cpu=_identical(flat["cuda"], flat["cpu"]),
+                          **{f"{dev}_scatter_gather": _identical(
+                              flat[dev], side[dev]["runs"][base])
+                              for dev in side})
+            if not all(all(c.values()) for c in checks.values()):
+                raise AssertionError(f"shard_exact {key} {name}: {checks}")
+            stats[name] = dict(n_computed=flat["cuda"].n_computed,
+                               hops=flat["cuda"].hops)
+        rows[key] = dict(build_s={dev: side[dev]["build_s"] for dev in side},
+                         counts=card["sg"].counts.tolist(), runs=stats)
+    keys, _, _ = _serve_int_data(n, cfg["nq"])
     x = torch.from_numpy(keys.numpy()).cuda()
     runs = [graph._kmeans_parts(n, S, x, "ip", 0) for _ in range(2)]
     if not torch.equal(runs[0][1], runs[1][1]) or not all(
@@ -2453,8 +2659,8 @@ def phase_shard_exact() -> None:
         raise AssertionError("k-means: two card runs differ")
     emit("shard_exact", n=n, d=128, nq=cfg["nq"], shards=S, ef=cfg["ef"],
          top_k=TOP_K, metric="ip", params=SERVE_PARAMS,
-         compared=list(cases) + ["flat_S", "flat_S_sq8"], identical=True,
-         cases=rows,
+         compared=list(card["runs"]) + list(card["flat"]),
+         identical=True, cases=rows,
          kmeans=dict(two_card_runs_equal=True,
                      **_kmeans_contract(runs[0][0], n, S)),
          kmeans_reference_checks=kmeans_reference_checks(),
@@ -4042,16 +4248,591 @@ def phase_lm_small_full(counters: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- training ---
+def _flash_bwd_row(fa, gen) -> dict:
+    """The flash backward kernels against their plain version (autograd of
+    the plain forward, recomputed) at every FA_CASES case, fp32 and bf16,
+    dh 128 and 224, and at the timed shapes: granite's training shape
+    (2, 32, 4096, 128) causal in bf16 and fp32, and gemma2's (1, 16, 4096,
+    224) at window 4096 and soft-cap 50 in bf16.  Each timed beside the
+    plain backward and SDPA's backward at soft-cap 0 (the nearest library
+    call: it cannot soft-cap)."""
+    import torch
+    import torch.nn.functional as F
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    checked = []
+
+    def check(b, h, sq, sk, dh, dt, kw):
+        q, do = (torch.randn((b, h, sq, dh), generator=gen,
+                             device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn((b, h, sk, dh), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        out, lse = fa._launch(q, k, v, scale=None, with_lse=True, **kw)
+        got = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        want = fa.flash_attention_backward_plain(
+            *(t.float() for t in (q, k, v)), do.float(), **kw)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        rel = []
+        for g, w in zip(got, want):
+            err = float((g.float() - w).abs().max())
+            scale = max(float(w.abs().max()), 1e-6)
+            if g.dtype != dt or not bool(torch.isfinite(g).all()) or \
+                    err > FA_BWD_TOL[name] * scale:
+                raise AssertionError(
+                    f"flash_attention_bwd {(b, h, sq, sk, dh)} {name} {kw}: "
+                    f"max err {err} beyond {FA_BWD_TOL[name]} of {scale}")
+            errs[name] = max(errs[name], err)
+            rel.append(err / scale)
+        checked.append(dict(shape=[b, h, sq, sk, dh], dtype=name, **kw,
+                            max_rel_err=max(rel)))
+        return q, k, v, out, lse, do
+
+    for dt in (torch.float32, torch.bfloat16):
+        for dh in (128, 224):
+            for c in fa.FA_CASES:
+                check(1, 2, c["sq"], c["sk"], dh, dt,
+                      dict(causal=c["causal"], window=c["w"],
+                           softcap=c["cap"], q_offset=c["off"]))
+
+    def timed(b, h, s, dh, dt, window, cap):
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=0)
+        q, k, v, out, lse, do = check(b, h, s, s, dh, dt, kw)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        row = timed_row(
+            lambda: fa.flash_attention_backward(q, k, v, out, lse, do, **kw),
+            lambda: fa.flash_attention_backward_plain(q, k, v, do, **kw),
+            lambda: torch.autograd.grad(lib_out, leaves, do,
+                                        retain_graph=True), reps=2)
+        pairs = _attended_pairs(s, s, True, window, 0)
+        flops = 5 * 2.0 * b * h * pairs * dh
+        esize = q.element_size()
+        nbytes = 8.0 * q.numel() * esize + 4.0 * lse.numel()
+        rate = BF16_FLOPS if dt == torch.bfloat16 else TF32_FLOPS / 3
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, rate)
+        row["tflops_5_products"] = flops / (row["ms"] * 1e9)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row.update(shape=[b, h, s, dh], dtype=str(dt).split(".")[1],
+                   window=window, softcap=cap,
+                   library_setting="SDPA backward, is_causal, softcap 0")
+        del q, k, v, out, lse, do, leaves, lib_out
+        torch.cuda.empty_cache()
+        return row
+
+    bf16 = timed(2, 32, TRAIN_S, 128, torch.bfloat16, 0, 0.0)
+    fp32 = timed(2, 32, TRAIN_S, 128, torch.float32, 0, 0.0)
+    gemma = timed(1, 16, TRAIN_S, 224, torch.bfloat16, TRAIN_S, 50.0)
+    head = {k: bf16[k] for k in (
+        "ms", "ms_spread", "plain_ms", "plain_ms_spread", "library_ms",
+        "library_ms_spread", "bound_ms", "bound_by")}
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="none: port-only; the gradient of "
+                         "src/repro/kernels/flash_attention.py:91, whose "
+                         "pallas_call has no VJP (the reference "
+                         "differentiates its plain jnp forms)",
+                launches=0, max_abs_err=max(errs.values()),
+                max_abs_err_fp32=errs["float32"],
+                max_abs_err_bf16=errs["bfloat16"], **head,
+                shape=bf16["shape"], dtype="bfloat16",
+                form="granite_3_8b's training shape, causal, softcap 0",
+                timed=[bf16, fp32, gemma],
+                bound_note="5 products x 2 pairs dh flops a head (the "
+                           "attended pairs: causal halves them) at 989 "
+                           "TFLOP/s bf16, or 495/3 TFLOP/s fp32 (3xTF32); "
+                           "this body runs 7 products on the CUDA cores",
+                kernels=["flash_bwd_delta_kernel",
+                         "flash_bwd_dkdv_kernel<T, DP>",
+                         "flash_bwd_dq_kernel<T, DP>"],
+                library="torch.autograd.grad through "
+                        "scaled_dot_product_attention(is_causal=True) at "
+                        "softcap 0 (forward outside the timing)",
+                shapes_checked=checked)
+
+
+def _to_device(state, dev):
+    """A TrainState's tensors copied to ``dev``."""
+    import torch
+    from repro_torch.train import train_loop
+
+    def move(x):
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(move(v) for v in x))
+        return x.to(dev) if torch.is_tensor(x) else x
+    return train_loop.TrainState(*(move(v) for v in state))
+
+
+def _flat(state) -> dict:
+    from repro_torch.core import convert
+    return convert.train_state_to_numpy(state)
+
+
+def _train_flash_per_step(M, cfg, nmb: int, remat: bool) -> tuple[int, int]:
+    """Flash (forward, backward) launches of one train step: each
+    attention call of a forward launches the forward kernel once, and
+    again when remat recomputes its sublayer (the decoder's, not the
+    encoder's, which runs without remat), and the backward kernels once."""
+    dec = sum(k.mixer == "attn" for k in M.layer_plan(cfg)) * cfg.n_groups
+    if cfg.is_encdec:
+        dec += cfg.n_layers                     # cross-attention
+    enc = cfg.n_enc_layers if cfg.is_encdec else 0
+    fwd = nmb * ((2 if remat else 1) * dec + enc)
+    return fwd, nmb * (dec + enc)
+
+
+def _train_step_pair(cfg, opt, scfg, init, batches, counters, M):
+    """The same steps on the card and on the CPU from ``init``: by
+    device, the losses and the flat state after each step; and the
+    card's flash launches a step."""
+    import torch
+    from repro_torch.train import train_loop
+    out = {}
+    per_step = []
+    for dev in ("cuda", "cpu"):
+        state = _to_device(init, dev)
+        step = train_loop.make_train_step(cfg, opt, scfg)
+        losses, flats = [], []
+        for b in batches:
+            if dev == "cuda":
+                zero_counts(counters)
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                per_step.append(read_counts(counters))
+            flats.append(_flat(state))
+        out[dev] = (losses, flats)
+    return out, per_step
+
+
+def _compare_states(name, card, cpu, tol, sign_noise=False) -> dict:
+    """Elementwise rtol = atol = tol on every leaf of two flat states;
+    returns the largest error by part.  With ``sign_noise``, a parameter
+    is excused where the first moments took opposite signs at most tol
+    from 0 (SIGN_NOISE).  With compression (an ``.ef`` residual in
+    the state), the entries where the two devices' compressions decided
+    differently -- an int8 code one step apart, or a top-k entry swapped
+    at the threshold: the residuals differ there -- are excused in the
+    residual, the moments and the parameters, and may be at most
+    COMPRESSION_FLIPS of each leaf."""
+    import numpy as np
+    worst, excused, flips = {}, 0, 0
+    decided = {}
+    for k in (k for k in cpu if k.startswith(".ef/.residual/")):
+        path = k[len(".ef/.residual/"):]
+        d = ~np.isclose(card[k], cpu[k], rtol=tol, atol=tol)
+        if d.sum() > max(1, COMPRESSION_FLIPS * d.size):
+            raise AssertionError(f"{name} {k}: the compressions differ on "
+                                 f"{int(d.sum())} of {d.size} entries")
+        decided[path] = d
+        flips += int(d.sum())
+    for k, want in cpu.items():
+        got = card[k]
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name} {k}: {got.dtype} {got.shape} vs "
+                                 f"{want.dtype} {want.shape}")
+        err = float(np.max(np.abs(got.astype(np.float64) - want)))
+        part = k.split("/")[0] if k.count("/") < 2 else "/".join(
+            k.split("/")[:2])
+        worst[part] = max(worst.get(part, 0.0), err)
+        ok = np.isclose(got, want, rtol=tol, atol=tol)
+        path = next((k[len(pre):] for pre in (".params/", ".opt/.mu/",
+                                                 ".opt/.nu/", ".ef/.residual/")
+                     if k.startswith(pre)), None)
+        if path in decided:
+            ok |= decided[path]
+        if sign_noise and k.startswith(".params/"):
+            mu = ".opt/.mu/" + k[len(".params/"):]
+            flip = np.sign(card[mu]) != np.sign(cpu[mu])
+            if not np.all(np.abs(cpu[mu][flip]) <= tol * np.abs(
+                    cpu[mu]).max()):
+                raise AssertionError(f"{name} {k}: the moments differ in "
+                                     f"sign away from 0")
+            excused += int(np.sum(flip & ~ok))
+            ok |= flip
+        if not ok.all():
+            raise AssertionError(f"{name} {k}: max err {err} beyond {tol}")
+    if sign_noise:
+        worst["params_excused_by_sign"] = excused
+    if decided:
+        worst["entries_compressed_differently"] = flips
+    return worst
+
+
+def _train_exact_inputs(arch: str, comp: str):
+    """One train_exact run's model config, optimizer, step config, CPU
+    init_state and batches."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.train import data, train_loop
+    from repro_torch.train.optimizer import AdamWConfig
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    cfg = dataclasses.replace(registry.get_config(arch).smoke(), vocab=512)
+    steps = TRAIN_EXACT["steps"] if comp == "none" else 1
+    scfg = train_loop.StepConfig(
+        microbatches=TRAIN_EXACT["microbatches"], compute_dtype="float32",
+        remat=True, grad_compression=comp)
+    init = train_loop.init_state(cfg, opt, scfg, seed=0, device="cpu")
+    ds = data.SyntheticLM(data.DataConfig(
+        vocab=512, seq_len=TRAIN_EXACT["s"], global_batch=TRAIN_EXACT["b"]),
+        device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    batches = [dict(ds.global_batch(s), **_extras(
+        cfg, TRAIN_EXACT["b"], gen, "cpu")) for s in range(steps)]
+    return cfg, opt, scfg, init, batches
+
+
+def xlstm_noise() -> dict:
+    """How far rounding alone carries train_exact's losses for the
+    SIGN_NOISE archs (the CPU mirror's part): by arch, the CPU's losses
+    from its init_state, and from LOSS_NOISE["seeds"] copies of it whose
+    every weight is moved one ulp, up or down at random."""
+    import torch
+    from repro_torch.train import train_loop
+    out = {}
+    for arch in SIGN_NOISE:
+        cfg, opt, scfg, init, batches = _train_exact_inputs(arch, "none")
+        step = train_loop.make_train_step(cfg, opt, scfg)
+
+        def losses(params):
+            state, seen = init._replace(params=params), []
+            for b in batches:
+                state, m = step(state, b)
+                seen.append(float(m["loss"]))
+            return seen
+        perturbed = []
+        for seed in range(1, LOSS_NOISE["seeds"] + 1):
+            gen = torch.Generator().manual_seed(seed)
+            perturbed.append(losses({k: torch.nextafter(v, torch.where(
+                torch.rand(v.shape, generator=gen) < 0.5, math.inf,
+                -math.inf)) for k, v in init.params.items()}))
+        out[arch] = dict(base=losses(init.params), perturbed=perturbed)
+    return out
+
+
+def phase_train_exact(counters: dict, mirror) -> dict:
+    """All ten archs' smoke configs (vocab 512, fp32, 2 microbatches,
+    remat): 2 train steps on the card and 2 on the CPU from one
+    init_state; losses and every leaf of the state (parameters, moments)
+    card == CPU to 1e-4; the flash launches of each step exact (0 for
+    xlstm).  xlstm (SIGN_NOISE) is held at 1e-3 on the first step's loss
+    and state, its parameters excused where the gradient's sign is noise,
+    and on the second step's loss within LOSS_NOISE["factor"] times the
+    rms spread that one-ulp moves of its initial weights give on the CPU
+    (from the CPU mirror).  Then one step each with int8 and top-k
+    compression (granite), held alike but for the entries the two devices
+    compressed differently (COMPRESSION_FLIPS)."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    rows, totals = [], {}
+    t0 = time.perf_counter()
+    runs = [(arch, "none") for arch in registry.ARCH_IDS] + [
+        ("granite_3_8b", "int8"), ("granite_3_8b", "topk")]
+    for arch, comp in runs:
+        cfg, opt, scfg, init, batches = _train_exact_inputs(arch, comp)
+        tol = FAMILY_TOL.get(arch, 1e-4)
+        out, per_step = _train_step_pair(cfg, opt, scfg, init, batches,
+                                         counters, M)
+        (card_l, card_s), (cpu_l, cpu_s) = out["cuda"], out["cpu"]
+        name = f"train_exact {arch} {comp}"
+        row = dict(arch=arch, compression=comp, steps=len(batches), tol=tol,
+                   losses_card=card_l, losses_cpu=cpu_l)
+        held = len(card_l) if arch not in SIGN_NOISE else 1
+        row["loss_err"] = max(abs(a - b) for a, b in
+                              zip(card_l[:held], cpu_l[:held]))
+        if not row["loss_err"] <= tol * max(1.0, max(abs(x) for x in
+                                                     cpu_l[:held])):
+            raise AssertionError(f"{name}: losses {card_l} vs {cpu_l}")
+        row["state_err"] = _compare_states(
+            name, card_s[held - 1], cpu_s[held - 1], tol,
+            sign_noise=arch in SIGN_NOISE)
+        if arch in SIGN_NOISE:
+            noise = mirror.get()["xlstm_noise"][arch]
+            spread = [float(np.sqrt(np.mean([(p[i] - noise["base"][i]) ** 2
+                                             for p in noise["perturbed"]])))
+                      for i in range(len(cpu_l))]
+            gaps = [abs(a - b) for a, b in zip(card_l, cpu_l)]
+            row.update(state_held_after_step=held, loss_gap=gaps,
+                       one_ulp_rms_spread=spread,
+                       one_ulp_cpu_losses=noise["perturbed"],
+                       mirror_cpu_losses=noise["base"])
+            if any(g > LOSS_NOISE["factor"] * r
+                   for g, r in zip(gaps[held:], spread[held:])):
+                raise AssertionError(f"{name}: card losses {card_l}, CPU "
+                                     f"{cpu_l}, beyond {LOSS_NOISE} x the "
+                                     f"one-ulp spread {spread}")
+        want = _train_flash_per_step(M, cfg, TRAIN_EXACT["microbatches"],
+                                     True)
+        got = [(c["flash_attention"], c["flash_attention_bwd"])
+               for c in per_step]
+        if any(g != want for g in got):
+            raise AssertionError(f"train_exact {arch}: flash launches a "
+                                 f"step {got}, expected {want}")
+        for c in per_step:
+            for k_, v_ in c.items():
+                totals[k_] = totals.get(k_, 0) + v_
+        rows.append(dict(row, flash_per_step=dict(forward=want[0],
+                                                  backward=want[1])))
+    emit("train_exact", vocab=512, batch=TRAIN_EXACT["b"],
+         seq=TRAIN_EXACT["s"], microbatches=TRAIN_EXACT["microbatches"],
+         dtype="float32", remat=True, lr=opt.lr, archs=rows,
+         loss_noise=LOSS_NOISE, seconds=time.perf_counter() - t0,
+         launches=totals)
+    return totals
+
+
+def phase_train_resume(counters: dict) -> dict:
+    """``python -m repro_torch.launch.train --arch granite_3_8b --smoke
+    --steps 20`` on the card (its loss falls); then ``run_resumable``
+    with a failure injected at step 7 and a checkpoint every 5 steps ends
+    bit for bit where the uninterrupted run does."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launch
+    from repro_torch.train import data, fault_tolerance, train_loop
+    from repro_torch.train.optimizer import AdamWConfig
+    root = os.path.join(HERE, "build", "train_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    _, steps, restarts, losses = launch.main(
+        ["--arch", "granite_3_8b", "--smoke", "--steps", "20",
+         "--ckpt-dir", os.path.join(root, "launch")])
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+    first = float(np.mean([losses[s] for s in range(1, 6)]))
+    last = float(np.mean([losses[s] for s in range(16, 21)]))
+    cfg = dataclasses.replace(registry.get_config("granite_3_8b").smoke(),
+                              vocab=512)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    scfg = train_loop.StepConfig(microbatches=2, compute_dtype="float32",
+                                 remat=True)
+    ds = data.SyntheticLM(data.DataConfig(vocab=512, seq_len=64,
+                                          global_batch=8), device="cuda")
+    step = train_loop.make_train_step(cfg, opt, scfg)
+    finals = {}
+    for name, fails in (("uninterrupted", ()), ("failure_at_7", (7,))):
+        seen = set()
+
+        def inject(s, fails=fails, seen=seen):
+            if s in fails and s not in seen:
+                seen.add(s)
+                return True
+            return False
+        state = train_loop.init_state(cfg, opt, scfg, seed=0, device="cuda")
+        state, n, r = fault_tolerance.run_resumable(
+            state, step, ds.global_batch, n_steps=10,
+            ckpt_dir=os.path.join(root, name), ckpt_every=5,
+            fail_injector=inject)
+        finals[name] = (_flat(state), n, r)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    (a, na, ra), (b, nb, rb) = finals["uninterrupted"], finals["failure_at_7"]
+    identical = list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+    emit("train_resume", launcher=dict(steps=steps, restarts=restarts,
+                                       seconds=launch_s,
+                                       loss_first5=first, loss_last5=last,
+                                       losses=losses),
+         resumable=dict(n_steps=10, ckpt_every=5, failure_at=7,
+                        restarts=[ra, rb], steps=[na, nb],
+                        bit_identical=identical, leaves=len(a)),
+         launches=launches)
+    if (steps, restarts) != (20, 0) or not last < first:
+        raise AssertionError(f"train_resume launcher: steps {steps}, "
+                             f"restarts {restarts}, loss {first} -> {last}")
+    if (na, ra, nb, rb) != (10, 0, 10, 1) or not identical:
+        raise AssertionError(f"train_resume: resumed run differs from the "
+                             f"uninterrupted one ({na, ra, nb, rb}, "
+                             f"identical={identical})")
+    if launches["flash_attention"] == 0 or \
+            launches["flash_attention_bwd"] == 0:
+        raise AssertionError(f"train_resume: flash launches {launches}")
+    return launches
+
+
+def _matmul_params(cfg) -> int:
+    """Weights that enter a matrix product: every 2-D-or-more weight of
+    the layers and the output head (the embedding table is a lookup),
+    counted from the leaves' shapes (a stacked leaf's first axis is the
+    period group's, not the weight's)."""
+    from repro_torch.models import model as M
+    n = 0
+    for path, shape in M.leaf_shapes(cfg).items():
+        per_layer = shape[1:] if path.startswith(("blocks/", "encoder/")) \
+            else shape
+        if len(per_layer) >= 2 and (path != "embed/emb"
+                                    or cfg.tie_embeddings):
+            n += math.prod(shape)
+    return n
+
+
+def phase_lm_train_width(counters: dict) -> dict:
+    """granite_3_8b at its full widths, 8 of its 40 layers, bf16 compute
+    with fp32 master weights and moments, remat: a warm-up step, then
+    TRAIN_STEPS timed steps of 8 x 4096 tokens in 4 microbatches (the
+    state updated in place), a profiled step for the idle share.  Before
+    it, one fp32 step at full width and 2 layers, B = 1, S = 256, the card
+    against the CPU."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.train import data, train_loop
+    from repro_torch.train.optimizer import AdamWConfig
+    full = registry.get_config(TRAIN_ARCH)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+
+    # the card against the CPU, one fp32 step at full width
+    check_cfg = dataclasses.replace(full, n_layers=TRAIN_CHECK["layers"])
+    scfg = train_loop.StepConfig(microbatches=1, compute_dtype="float32",
+                                 remat=True)
+    t0 = time.perf_counter()
+    init = train_loop.init_state(check_cfg, opt, scfg, seed=21, device="cpu")
+    toks = torch.randint(0, full.vocab, (TRAIN_CHECK["b"],
+                                         TRAIN_CHECK["s"] + 1),
+                         generator=torch.Generator().manual_seed(22))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out, _ = _train_step_pair(check_cfg, opt, scfg, init, [batch], counters,
+                              M)
+    del init
+    (card_l, (card_s,)), (cpu_l, (cpu_s,)) = out["cuda"], out["cpu"]
+    check = dict(loss_card=card_l[0], loss_cpu=cpu_l[0],
+                 seconds=time.perf_counter() - t0)
+    if not abs(card_l[0] - cpu_l[0]) <= 1e-4 * abs(cpu_l[0]):
+        raise AssertionError(f"lm_train_width check: loss {card_l} vs "
+                             f"{cpu_l}")
+    # the gradient, read through the first moment (mu = (1 - b1) g after
+    # one step, linear in g), normwise; Adam's first step itself is
+    # ~sign(g) and moves a parameter whose gradient is 0 up to rounding
+    # by ~lr on one device and not the other
+    norm = {}
+    for part in (".opt/.mu/", ".opt/.nu/"):
+        for k in (k for k in cpu_s if k.startswith(part)):
+            err = float(np.max(np.abs(card_s[k] - cpu_s[k])))
+            scale = float(np.max(np.abs(cpu_s[k])))
+            norm[k] = err / max(scale, 1e-30)
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"lm_train_width check {k}: {err} "
+                                     f"beyond 1e-4 of {scale}")
+    check["normwise_moments_max"] = max(norm.values())
+    del out, card_s, cpu_s
+    torch.cuda.empty_cache()
+
+    # the full-width run
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    scfg = train_loop.StepConfig(microbatches=TRAIN_MB,
+                                 compute_dtype="bfloat16", remat=True)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, opt, scfg, seed=23, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.values())
+    t0 = time.perf_counter()
+    ds = data.SyntheticLM(data.DataConfig(vocab=TRAIN_DATA_VOCAB,
+                                          seq_len=TRAIN_S,
+                                          global_batch=TRAIN_B, seed=0),
+                          device="cuda")
+    batches = [ds.global_batch(s) for s in range(TRAIN_STEPS + 2)]
+    data_s = time.perf_counter() - t0
+    marks: list = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    step = train_loop.make_train_step(cfg, opt, scfg, donate=True,
+                                      mark=mark)
+    state, m = step(state, batches[0])                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    walls, losses, split = [], [float(m["loss"])], []
+    for s in range(1, TRAIN_STEPS + 1):
+        marks.clear()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        ms = {}
+        for (name, a), (_, b) in zip(marks, marks[1:]):
+            ms[name] = ms.get(name, 0.0) + a.elapsed_time(b)
+        split.append(ms)
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[TRAIN_STEPS + 1])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    losses.append(float(m["loss"]))
+    busy, top, n_launch = device_time(prof)
+    tokens = TRAIN_B * TRAIN_S
+    n_mm = _matmul_params(cfg)
+    pairs = _attended_pairs(TRAIN_S, TRAIN_S, True, 0, 0)
+    attn = 3 * 4.0 * cfg.n_heads * pairs * cfg.head_dim * cfg.n_layers * \
+        TRAIN_B
+    flops = 6.0 * n_mm * tokens + attn
+    step_s = float(np.median(walls))
+    want = _train_flash_per_step(M, cfg, TRAIN_MB, True)
+    per_step = (launches["flash_attention"] / TRAIN_STEPS,
+                launches["flash_attention_bwd"] / TRAIN_STEPS)
+    finite = all(math.isfinite(x) for x in losses)
+    emit("lm_train_width", arch=TRAIN_ARCH, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         params=n_params, matmul_params=n_mm, seq=TRAIN_S,
+         global_batch=TRAIN_B, microbatches=TRAIN_MB,
+         dtype="bfloat16 compute, fp32 master weights and moments",
+         remat=True, init_s=init_s, data_s=data_s, step_s=walls,
+         step_s_median=step_s, tokens_per_s=tokens / step_s,
+         model_flops_per_step=flops, attention_flops_per_step=attn,
+         flop_share_of_989_tflops=flops / step_s / BF16_FLOPS,
+         ms_by_part=split, peak_memory_bytes=peak, losses=losses,
+         profiled_wall_s=prof_wall, device_busy_s=busy,
+         device_idle_share=1.0 - busy / prof_wall, cuda_launches=n_launch,
+         top_device_ms=top, flash_per_step=dict(forward=per_step[0],
+                                                backward=per_step[1]),
+         launches=launches, check_card_vs_cpu=dict(
+             layers=TRAIN_CHECK["layers"], batch=TRAIN_CHECK["b"],
+             seq=TRAIN_CHECK["s"], dtype="float32", **check),
+         reduced=f"{cfg.n_layers} of {full.n_layers} layers (fp32 state "
+                 f"for 40 would be 134 GB); tokens from SyntheticLM at "
+                 f"vocab {TRAIN_DATA_VOCAB} (the model keeps its "
+                 f"{full.vocab}-wide embedding and head); random weights")
+    if not finite:
+        raise AssertionError(f"lm_train_width: losses {losses}")
+    if per_step != want:
+        raise AssertionError(f"lm_train_width: flash launches a step "
+                             f"{per_step}, expected {want}")
+    del state, batches, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    # 25k, not 50k: at 50k the whole script took 1326 s on a slower host
-    # (PERF.md §2), past its 1200 s limit; main, hnsw, nsg and tune scale
-    # with n
+    # 25k: at 50k the whole script took 1326 s on a slower host
+    # (PERF.md §2), past its 1200 s limit
     ap.add_argument("--n", type=int, default=25_000,
                     help="corpus size of the main path (default 25k)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="only profile one grouped build of N points")
+    ap.add_argument("--cpu-mirror", metavar="PATH", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cpu_mirror:
+        return cpu_mirror(args.cpu_mirror)
 
     import torch
     if not torch.cuda.is_available():
@@ -4067,7 +4848,8 @@ def main() -> int:
                 "gather_distance_sq8": (gather_distance, "LAUNCHES_SQ8"),
                 "pairwise_distance_sq8": (l2_distance, "LAUNCHES_SQ8"),
                 "flash_attention": (flash_attention, "LAUNCHES"),
-                "prune_recurrence": (prune, "LAUNCHES")}
+                "prune_recurrence": (prune, "LAUNCHES"),
+                "flash_attention_bwd": (flash_attention, "BWD_LAUNCHES")}
     t0 = time.perf_counter()
     laps, last = {}, [t0]
 
@@ -4087,11 +4869,10 @@ def main() -> int:
     if args.profile:
         phase_profile(args.profile)
         return 0
+    mirror = CpuMirror()
     kernels = phase_kernels(args.n)
     lap("kernels")
     by_path = {}
-    phase_exact()
-    lap("exact")
     by_path["main"], main_data = phase_main(args.n, counters)
     lap("main")
     by_path["hnsw"] = phase_family("hnsw", HNSW_CONFIGS, main_data, counters)
@@ -4101,6 +4882,9 @@ def main() -> int:
     lap("tune")
     del main_data
     build.release()                  # the captured build steps
+    phase_exact(mirror)
+    lap("exact")
+    build.release()
     phase_serve_exact()
     zero_counts(counters)
     data = serve_data()
@@ -4116,7 +4900,7 @@ def main() -> int:
     by_path["serve_cosine"] = phase_serve(counters, data, "cosine")
     lap("serve")
     build.release()                  # the captured build steps
-    phase_shard_exact()
+    phase_shard_exact(mirror)
     lap("shard_exact")
     by_path["serve_sharded"], sharded = phase_serve_sharded(counters, data)
     lap("serve_sharded")
@@ -4145,6 +4929,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["lm_small_full"] = phase_lm_small_full(counters)
     lap("lm_rest")
+    torch.cuda.empty_cache()
+    by_path["train_exact"] = phase_train_exact(counters, mirror)
+    by_path["train_resume"] = phase_train_resume(counters)
+    lap("train_exact_resume")
+    by_path["lm_train_width"] = phase_lm_train_width(counters)
+    lap("lm_train_width")
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}

@@ -2,7 +2,8 @@
 
 Port of ``repro/configs/registry.py``.  ``input_specs`` (the dry-run's
 ``jax.ShapeDtypeStruct`` stand-ins) is not ported: its only caller is the
-dry-run, and it waits for that port (ROADMAP queue 1, item 10).
+dry-run, which moves with the multi-device slice (ROADMAP queue 1,
+item 6).
 """
 from __future__ import annotations
 

@@ -7,8 +7,10 @@ with its layers, levels, entry and top the port's ``HNSWBuildResult``),
 a ``repro`` ``ShardedGraph`` the port's, and a ``repro`` ``RetrievalIndex``
 (sharded or not) the port's, so a graph, a partition or an index built by
 either package can be searched by the other.  A
-``repro`` LM parameter tree becomes the port's ``models.model.LM``, and a
-``repro`` GP surrogate the port's ``tuner.gp.GPState``.
+``repro`` LM parameter tree becomes the port's ``models.model.LM``, a
+``repro`` ``TrainState`` (flattened as its checkpoints flatten it) the
+port's ``train.train_loop.TrainState`` and back, and a ``repro`` GP
+surrogate the port's ``tuner.gp.GPState``.
 Nothing here imports the reference.
 """
 from __future__ import annotations
@@ -30,6 +32,10 @@ from repro_torch.core.tuner import gp as gplib
 from repro_torch.core.vamana import BuildResult, VamanaParams
 from repro_torch.models import model as model_lib
 from repro_torch.serve.retrieval import RetrievalIndex
+from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train import compression
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import train_loop
 
 
 def graph_from_numpy(ids: np.ndarray, dist: np.ndarray,
@@ -240,3 +246,52 @@ def gp_state_from_numpy(fields: dict,
         raise ValueError(f"GP state without {sorted(missing)}")
     return gplib.GPState(**{f: as_tensor(np.asarray(fields[f]), dev,
                                          torch.float32) for f in names})
+
+
+def train_state_from_numpy(flat: dict, cfg: ArchConfig,
+                           device: "str | torch.device" = "cuda"
+                           ) -> "train_loop.TrainState":
+    """A reference ``TrainState`` flattened as its checkpoints are
+    (``repro.train.checkpoint._flatten``: ``.params/blocks/sub0/attn/wq``,
+    ``.opt/.step``, ``.opt/.mu/...``, ``.opt/.nu/...``, ``.ef/.residual/...``
+    with compression, ``.step``) -> the port's TrainState on ``device``.
+
+    The leaves stay the reference's (stacked over period groups), every
+    array keeps its dtype and values; ``cfg`` checks that the parameters
+    are exactly the ones the port's model for it has."""
+    dev = resolve_device(device)
+
+    def sub(prefix: str) -> dict:
+        return {k[len(prefix):]: torch.from_numpy(np.array(v)).to(dev)
+                for k, v in flat.items() if k.startswith(prefix)}
+
+    params = sub(".params/")
+    want = model_lib.leaf_shapes(cfg)
+    if set(params) != set(want):
+        raise ValueError(f"{cfg.name}: reference leaves "
+                         f"{sorted(set(params) ^ set(want))} do not match "
+                         f"the port's parameters")
+    for k, shape in want.items():
+        if tuple(params[k].shape) != shape:
+            raise ValueError(f"{cfg.name}: reference leaf {k} is "
+                             f"{tuple(params[k].shape)}, the port's {shape}")
+    for k in (".opt/.step", ".step"):
+        if k not in flat:
+            raise KeyError(f"train state without {k}")
+    opt = opt_lib.AdamWState(
+        step=torch.from_numpy(np.array(flat[".opt/.step"])).to(dev),
+        mu=dict(sorted(sub(".opt/.mu/").items())),
+        nu=dict(sorted(sub(".opt/.nu/").items())))
+    residual = sub(".ef/.residual/")
+    ef = (compression.EFState(residual=dict(sorted(residual.items())))
+          if residual else None)
+    return train_loop.TrainState(
+        params=dict(sorted(params.items())), opt=opt, ef=ef,
+        step=torch.from_numpy(np.array(flat[".step"])).to(dev))
+
+
+def train_state_to_numpy(state: "train_loop.TrainState") -> dict:
+    """The port's TrainState -> the reference's flattened form (the keys
+    and host arrays its checkpoints hold), for
+    ``jax.tree_util.tree_unflatten`` or a reference ``restore``."""
+    return ckpt_lib._flatten(state)

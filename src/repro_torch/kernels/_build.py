@@ -28,7 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # every CUDA source of the port: csrc/<name>.cu
-SOURCES = ("distance", "flash_attention", "prune")
+SOURCES = ("distance", "flash_attention", "flash_attention_bwd", "prune")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

@@ -141,6 +141,21 @@ namespace {
 constexpr float FA_NEG = -1e30f;               // the reference's sentinel
 constexpr int FA_MAX_DH = 256;
 
+// The epilogue's log-sum-exp of rows row and row + 8 (base 2: the running
+// max m plus log2 of the row sum l, both quad-uniform by then) for the
+// backward kernels (csrc/flash_attention_bwd.cu); +inf where a row attends
+// no key, so that its probabilities 2^(t - lse) are 0 there.  Written by
+// one thread of the quad, only when the caller passes a buffer.
+__device__ __forceinline__ void write_lse(float* __restrict__ lse, int row,
+                                          int sq, const float (&m)[2],
+                                          const float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (row + 8 * h < sq)
+      lse[row + 8 * h] =
+          l[h] > 0.f ? m[h] + log2f(l[h]) : __int_as_float(0x7f800000);
+}
+
 // ---------------------------------------------------------------- bf16 --
 
 constexpr int WG_ROWS = 64;                    // query rows a warpgroup
@@ -513,9 +528,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ o,
-                             int sq, int sk, int dh, float scale, int causal,
-                             int window, float softcap, int q_offset,
-                             int tma) {
+                             float* __restrict__ lse, int sq, int sk, int dh,
+                             float scale, int causal, int window,
+                             float softcap, int q_offset, int tma) {
   using S = WgShape<DP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // 1024-byte aligned tiles: Q [atoms][128 rows], then 2 K stages and 3 V
@@ -789,6 +804,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const float inv[2] = {1.f / (l[0] > 0.f ? l[0] : 1.f),
                         1.f / (l[1] > 0.f ? l[1] : 1.f)};
+  if (lse != nullptr && t == 0)
+    write_lse(lse + bh * sq, q0 + wr + g, sq, m, l);
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
@@ -862,8 +879,8 @@ int tensor_map(CUtensorMap* map, const void* ptr, int bh, int rows, int dh,
 
 template <int DP>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                 int bh, int sq, int sk, int dh, float scale, int causal,
-                 int window, float softcap, int q_offset,
+                 float* lse, int bh, int sq, int sk, int dh, float scale,
+                 int causal, int window, float softcap, int q_offset,
                  cudaStream_t stream) {
   const size_t smem = WgShape<DP>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -886,7 +903,7 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   }
   const dim3 grid(bh, (sq + WG_BQ - 1) / WG_BQ);
   flash_attention_wgmma_kernel<DP><<<grid, WG_THREADS, smem, stream>>>(
-      tq, tk, tv, q, k, v, o, sq, sk, dh, scale, causal, window, softcap,
+      tq, tk, tv, q, k, v, o, lse, sq, sk, dh, scale, causal, window, softcap,
       q_offset, tma);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1001,7 +1018,8 @@ __global__ void __launch_bounds__(F_THREADS, 1)
 flash_attention_tf32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
-                            float* __restrict__ o, int sq, int sk, int dh,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            int sq, int sk, int dh,
                             float scale, int causal, int window,
                             float softcap, int q_offset, int vec) {
   using S = F32Shape<DP>;
@@ -1222,6 +1240,8 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
   }
   const float inv[2] = {1.f / (l[0] > 0.f ? l[0] : 1.f),
                         1.f / (l[1] > 0.f ? l[1] : 1.f)};
+  if (lse != nullptr && t == 0)
+    write_lse(lse + bh * sq, q0 + wr + g, sq, m, l);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + wr + g + 8 * h;
@@ -1245,8 +1265,8 @@ flash_attention_tf32_kernel(const float* __restrict__ q,
 
 template <int DP>
 int launch_tf32(const float* q, const float* k, const float* v, float* o,
-                int bh, int sq, int sk, int dh, float scale, int causal,
-                int window, float softcap, int q_offset,
+                float* lse, int bh, int sq, int sk, int dh, float scale,
+                int causal, int window, float softcap, int q_offset,
                 cudaStream_t stream) {
   const size_t smem = F32Shape<DP>::SMEM;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -1261,7 +1281,8 @@ int launch_tf32(const float* q, const float* k, const float* v, float* o,
                   aligned(o);
   const dim3 grid(bh, (sq + F_BQ - 1) / F_BQ);
   flash_attention_tf32_kernel<DP><<<grid, F_THREADS, smem, stream>>>(
-      q, k, v, o, sq, sk, dh, scale, causal, window, softcap, q_offset, vec);
+      q, k, v, o, lse, sq, sk, dh, scale, causal, window, softcap, q_offset,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1277,26 +1298,28 @@ int check_args(int bh, int sq, int sk, int dh) {
 extern "C" {
 
 // q (bh, sq, dh), k and v (bh, sk, dh), o (bh, sq, dh), all contiguous
-// fp32; causal 0/1, window 0 = none, softcap 0 = none.  On the tensor
+// fp32; causal 0/1, window 0 = none, softcap 0 = none; lse (bh, sq) fp32
+// receives each row's base-2 log-sum-exp for the backward, or is null (the
+// prefill), which leaves the kernel's work as it was.  On the tensor
 // cores in 3xTF32 (fp32 accumulation), dh padded to 64, 128, 224 or 256.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* o, int bh, int sq, int sk, int dh, float scale,
                         int causal, int window, float softcap, int q_offset,
-                        void* stream) {
+                        float* lse, void* stream) {
   if (const int bad = check_args(bh, sq, sk, dh)) return bad;
   if (static_cast<int64_t>(bh) * sq == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
   if (dh <= 64)
-    return launch_tf32<64>(q, k, v, o, bh, sq, sk, dh, scale, causal, window,
-                           softcap, q_offset, st);
+    return launch_tf32<64>(q, k, v, o, lse, bh, sq, sk, dh, scale, causal,
+                           window, softcap, q_offset, st);
   if (dh <= 128)
-    return launch_tf32<128>(q, k, v, o, bh, sq, sk, dh, scale, causal,
+    return launch_tf32<128>(q, k, v, o, lse, bh, sq, sk, dh, scale, causal,
                             window, softcap, q_offset, st);
   if (dh <= 224)
-    return launch_tf32<224>(q, k, v, o, bh, sq, sk, dh, scale, causal,
+    return launch_tf32<224>(q, k, v, o, lse, bh, sq, sk, dh, scale, causal,
                             window, softcap, q_offset, st);
-  return launch_tf32<256>(q, k, v, o, bh, sq, sk, dh, scale, causal, window,
-                          softcap, q_offset, st);
+  return launch_tf32<256>(q, k, v, o, lse, bh, sq, sk, dh, scale, causal,
+                          window, softcap, q_offset, st);
 }
 
 // The same over bf16 tensors on the tensor cores (fp32 accumulation, bf16
@@ -1304,7 +1327,7 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* o, int bh, int sq, int sk, int dh, float scale,
                          int causal, int window, float softcap, int q_offset,
-                         void* stream) {
+                         float* lse, void* stream) {
   if (const int bad = check_args(bh, sq, sk, dh)) return bad;
   if (static_cast<int64_t>(bh) * sq == 0) return 0;
   const auto* qp = static_cast<const bf16*>(q);
@@ -1313,15 +1336,15 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
   auto* op = static_cast<bf16*>(o);
   const auto st = static_cast<cudaStream_t>(stream);
   if (dh <= 64)
-    return launch_wgmma<64>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
+    return launch_wgmma<64>(qp, kp, vp, op, lse, bh, sq, sk, dh, scale, causal,
                           window, softcap, q_offset, st);
   if (dh <= 128)
-    return launch_wgmma<128>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
+    return launch_wgmma<128>(qp, kp, vp, op, lse, bh, sq, sk, dh, scale, causal,
                            window, softcap, q_offset, st);
   if (dh <= 224)
-    return launch_wgmma<224>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
+    return launch_wgmma<224>(qp, kp, vp, op, lse, bh, sq, sk, dh, scale, causal,
                            window, softcap, q_offset, st);
-  return launch_wgmma<256>(qp, kp, vp, op, bh, sq, sk, dh, scale, causal,
+  return launch_wgmma<256>(qp, kp, vp, op, lse, bh, sq, sk, dh, scale, causal,
                          window, softcap, q_offset, st);
 }
 

@@ -21,6 +21,17 @@ A CPU tensor takes the plain PyTorch version below, with the reference's
 own split (``repro/kernels/ops.py:168-177``): the chunked form when
 sk > 1024, else the dense form.  A CUDA tensor launches the kernel or
 raises.  ``LAUNCHES`` counts the kernel's launches.
+
+The gradient.  When q, k or v needs one (the training path), the call
+goes through ``FlashAttention``, an autograd Function: on the card its
+forward asks the kernel for each row's log-sum-exp as well, and its
+backward launches the hand-written kernels of ``csrc/flash_attention_bwd.cu``
+(``flash_attention_backward``; ``BWD_LAUNCHES`` counts its calls), which
+recompute the probabilities from q, k and the log-sum-exp with no atomics.
+The reference has no backward kernel (its Pallas call has no VJP): its
+gradient is autodiff through the plain forms, and the plain backward here,
+``flash_attention_backward_plain``, is exactly that, recomputed inside the
+Function; the CPU path uses it, the card path never does.
 """
 from __future__ import annotations
 
@@ -32,9 +43,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 MAX_DH = 256
 _ENTRIES = {torch.float32: "flash_attention_f32",
             torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
+                torch.bfloat16: "flash_attention_bwd_bf16"}
 # The flash cases every check of this kernel runs (the unit tests, the card
 # tests, the smoke script, tools/emulate_flash_bf16.py): the reference's own
 # seven (tests/test_kernels.py), then several query blocks with a window and
@@ -68,11 +82,35 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
               scale=scale, q_offset=q_offset)
 
 
+def flash_attention_backward_plain(q, k, v, do, *, causal: bool = True,
+                                   window: int = 0, softcap: float = 0.0,
+                                   scale: float | None = None,
+                                   q_offset: int = 0):
+    """Plain PyTorch backward: autograd through ``flash_attention_plain``
+    (the reference's own gradient), recomputed from q, k, v.  Returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_plain(qd, kd, vd, causal=causal, window=window,
+                                    softcap=softcap, scale=scale,
+                                    q_offset=q_offset)
+        return torch.autograd.grad(out, (qd, kd, vd), do)
+
+
 def _entry(dtype: torch.dtype):
     fn = getattr(_build.load("flash_attention"), _ENTRIES[dtype])
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, f, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, f, i, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_entry(dtype: torch.dtype):
+    fn = getattr(_build.load("flash_attention_bwd"), _BWD_ENTRIES[dtype])
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 10 + [i, i, i, i, f, i, i, f, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,16 +145,11 @@ def _check(q, k, v):
             raise ValueError(f"flash_attention: {name} must be contiguous")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, scale: float | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """(b, h, sq, dh), (b, h, sk, dh), (b, h, sk, dh) -> (b, h, sq, dh) in
-    q's dtype; scale defaults to 1/sqrt(dh)."""
+def _launch(q, k, v, *, causal, window, softcap, scale, q_offset,
+            with_lse: bool):
+    """The forward kernel on CUDA tensors -> (out, lse or None); lse is
+    each row's base-2 log-sum-exp, (b, h, sq) fp32, when asked for."""
     global LAUNCHES
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale,
-                                     q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -124,12 +157,96 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     sk = k.shape[2]
     s = (1.0 / (dh ** 0.5)) if scale is None else float(scale)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _entry(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b * h, sq, sk, dh, s, int(bool(causal)), int(window),
-            float(softcap), int(q_offset), stream)
+            float(softcap), int(q_offset),
+            None if lse is None else lse.data_ptr(), stream)
     _build.check(err, _ENTRIES[q.dtype])
     LAUNCHES += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             scale: float | None = None, q_offset: int = 0):
+    """The backward kernels on CUDA tensors: q, k, v and the forward's
+    ``out`` and ``lse`` (``_launch(..., with_lse=True)``), ``do`` the
+    gradient of ``out`` -> (dq, dk, dv) in the inputs' dtype."""
+    global BWD_LAUNCHES
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward: unsupported device "
+                         f"{q.device}")
+    _check(q, k, v)
+    do = do.to(q.dtype).contiguous()
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"flash_attention_backward: out {tuple(out.shape)}"
+                         f" and do {tuple(do.shape)} must be q's "
+                         f"{tuple(q.shape)}")
+    b, h, sq, dh = q.shape
+    sk = k.shape[2]
+    s = (1.0 / (dh ** 0.5)) if scale is None else float(scale)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_entry(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b * h, sq, sk, dh, s,
+            int(bool(causal)), int(window), float(softcap), int(q_offset),
+            stream)
+    _build.check(err, _BWD_ENTRIES[q.dtype])
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the kernels on the card, the
+    plain forms (forward, then autograd recomputed in the backward) on the
+    CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
+        knobs = dict(causal=causal, window=window, softcap=softcap,
+                     scale=scale, q_offset=q_offset)
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, **knobs), None
+        else:
+            out, lse = _launch(q, k, v, with_lse=True, **knobs)
+        ctx.knobs = knobs
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_backward_plain(q, k, v, do, **ctx.knobs)
+        else:
+            grads = flash_attention_backward(q, k, v, out, lse, do,
+                                             **ctx.knobs)
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """(b, h, sq, dh), (b, h, sk, dh), (b, h, sk, dh) -> (b, h, sq, dh) in
+    q's dtype; scale defaults to 1/sqrt(dh).  Differentiable in q, k and
+    v through ``FlashAttention`` when grad mode is on and one of them
+    requires a gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                    q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_offset=q_offset)
+    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale, q_offset=q_offset, with_lse=False)[0]

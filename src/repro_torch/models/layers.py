@@ -3,10 +3,13 @@
 Port of ``repro/models/layers.py``.  Parameters are ``nn.ParameterDict``s
 holding each weight in the reference's layout (``wq`` (d, H, dh), ``wo``
 (H, dh, d), ``emb`` (vocab, d)), so a reference tree converts one to one
-(``core/convert.lm_params_from_numpy``).  They carry no gradient: the port
-has no training slice yet.  The reference's ``constrain`` sharding hints
-are no-ops without a mesh and are dropped here, with the ``*_axes``
-functions (they wait for their callers, ROADMAP queue 1, item 10).
+(``core/convert.lm_params_from_numpy``).  The module's own parameters
+carry no gradient: the training path (``train/train_loop.py``) holds the
+weights as the reference's stacked leaves, which it makes require one,
+and reads them through ``models/model.layer_tree``.  The reference's
+``constrain`` sharding hints are no-ops without a mesh and are dropped
+here, with the ``*_axes`` functions (they wait for the multi-device
+slice, ROADMAP queue 1, item 6).
 
 Full-sequence attention goes through ``ops.flash_attention`` (the
 hand-written kernel on a CUDA tensor), self-attention with RoPE and

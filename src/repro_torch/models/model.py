@@ -12,24 +12,35 @@ holds layer ``g * period + j`` (sublayer ``sub{j}`` of group ``g``) as an
 ``mlp`` / ``moe`` / ``dense_mlp`` as the layer has them), each weight in
 the reference's layout; an encoder-decoder model also has ``encoder``
 (layer l of the reference's stacked ``encoder``) and ``enc_norm``.  PyTorch
-runs the layers eagerly, so there is no scan and no remat (remat matters
-only to a backward pass, which the port does not have yet).
+runs the layers eagerly, so there is no scan; remat checkpoints each
+sublayer (``torch.utils.checkpoint``, non-reentrant), which on one device
+keeps what the reference's ``save_only_these_names("tp_reduced")`` policy
+keeps: the sublayers' outputs, everything inside recomputed.
 
 The uniform API, as in the reference:
   init_params(cfg, generator, device, dtype) -> LM
   forward(model, tokens, extras) -> logits          # prefill path
   encode(model, enc_input) -> memory                # whisper's encoder
   init_cache(model, batch, max_seq) -> cache
+  loss_fn(params, cfg, batch, remat) -> loss        # training path
   decode_step(model, token, cache, pos, extras) -> (logits, cache)
+
+The training path (``train/train_loop.py``) keeps its parameters as the
+reference's flat leaves (``stacked_params``: ``blocks/sub{j}/...`` and
+``encoder/...`` stacked to (n_groups, ...) / (n_enc_layers, ...)), so the
+optimizer's decay rank, the compressions' per-leaf scales and the
+checkpoint keys act on the reference's leaves; ``layer_tree`` views them
+as the per-layer dicts the forward reads, and gradients flow back into
+the stacked leaves.  ``forward`` and ``encode`` are the no-grad prefill
+entry points; ``loss_fn`` runs the same bodies with gradients.
 
 ``extras``: ``enc_input`` (B, S_enc, d) frame embeddings for an
 encoder-decoder forward, ``patches`` (B, n_patches, d) embeddings that
 overwrite the first token embeddings of a vision-stub model, and in decode
 ``enc_memory``, the encoder's output for cross-attention (without it a
 decoder layer skips its cross-attention, as the reference's does: its
-``ServeEngine`` passes no extras).  The training half (``loss_fn``, the
-``*_axes`` functions) waits for the training slice (ROADMAP queue 1,
-item 10).
+``ServeEngine`` passes no extras).  The ``*_axes`` functions (logical
+sharding axes) wait for the multi-device slice (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -161,7 +173,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None,
     seed: to compare the two packages, convert the reference's tree
     instead (``core/convert.lm_params_from_numpy``).  ``generator=None``
     leaves the random weights uninitialized for the converter to fill."""
-    dev = resolve_device(device)
+    return _build(cfg, generator, resolve_device(device), dtype)
+
+
+def _build(cfg: ArchConfig, generator: torch.Generator | None,
+           dev: torch.device, dtype: torch.dtype) -> LM:
     plan = layer_plan(cfg)
     kw = dict(device=dev, dtype=dtype)
     embed = L.init_embed(generator, cfg.vocab, cfg.d_model,
@@ -221,21 +237,67 @@ def _apply_sublayer(p, x, cfg: ArchConfig, kind: LayerKind, *,
 
 
 # ---------------------------------------------------------------- forward ---
-@torch.no_grad()
-def encode(model: LM, enc_input) -> torch.Tensor:
-    """Whisper's encoder over stubbed frame embeddings (B, S_enc, d):
-    non-causal self-attention (one flash launch a layer) and the GELU
-    FFN, then ``enc_norm`` (``model.py:245-262``)."""
-    cfg = model.cfg
-    x = torch.as_tensor(enc_input, device=model.device)
-    for p in model.encoder:
+def _tree(model: "LM | dict") -> dict:
+    """The layer tree the bodies read: an LM's own modules, or a dict
+    from ``layer_tree``."""
+    if isinstance(model, dict):
+        return model
+    return {"embed": model.embed, "layers": list(model.layers),
+            "final_norm": model.final_norm,
+            "encoder": None if model.encoder is None else list(model.encoder),
+            "enc_norm": model.enc_norm}
+
+
+def _encode(cfg: ArchConfig, tree: dict, enc_input) -> torch.Tensor:
+    """The encoder's body (``model.py:245-262``), with gradients when grad
+    mode is on."""
+    dev = tree["embed"]["emb"].device
+    x = torch.as_tensor(enc_input, device=dev)
+    for p in tree["encoder"]:
         h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
         x = x + L.attention_train(
             p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             d_head=cfg.head_dim, causal=False)
         h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h, cfg.act)
-    return L.rmsnorm(model.enc_norm, x, cfg.norm_eps)
+    return L.rmsnorm(tree["enc_norm"], x, cfg.norm_eps)
+
+
+def _forward(cfg: ArchConfig, tree: dict, tokens, *, extras=None, pos0=0,
+             remat: bool = False) -> torch.Tensor:
+    """The forward's body (``model.py:265-290``), with gradients when
+    grad mode is on; ``remat`` checkpoints each decoder sublayer."""
+    extras = extras or {}
+    dev = tree["embed"]["emb"].device
+    plan = layer_plan(cfg)
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    x = L.embed(tree["embed"], tokens)
+    if cfg.vision_stub and "patches" in extras:
+        patches = torch.as_tensor(extras["patches"], device=dev)
+        x[:, :patches.shape[1]] = patches.to(x.dtype)
+    memory = None
+    if cfg.is_encdec:
+        if "enc_input" not in extras:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
+                             f"extras['enc_input'] (B, S_enc, d_model)")
+        memory = _encode(cfg, tree, extras["enc_input"])
+    for i, p in enumerate(tree["layers"]):
+        kind = plan[i % cfg.period]
+        if remat:
+            x = checkpoint(_apply_sublayer, p, x, cfg, kind, memory=memory,
+                           pos0=pos0, use_reentrant=False)
+        else:
+            x = _apply_sublayer(p, x, cfg, kind, memory=memory, pos0=pos0)
+    x = L.rmsnorm(tree["final_norm"], x, cfg.norm_eps)
+    return L.unembed(tree["embed"], x, cfg.logit_softcap)
+
+
+@torch.no_grad()
+def encode(model: LM, enc_input) -> torch.Tensor:
+    """Whisper's encoder over stubbed frame embeddings (B, S_enc, d):
+    non-causal self-attention (one flash launch a layer) and the GELU
+    FFN, then ``enc_norm``."""
+    return _encode(model.cfg, _tree(model), enc_input)
 
 
 @torch.no_grad()
@@ -244,24 +306,99 @@ def forward(model: LM, tokens, *, extras=None, pos0=0) -> torch.Tensor:
     attention launch per attention layer on the card (and per encoder
     layer and cross-attention of an encoder-decoder).  An
     encoder-decoder needs ``extras["enc_input"]``."""
+    return _forward(model.cfg, _tree(model), tokens, extras=extras,
+                    pos0=pos0)
+
+
+def loss_fn(params: "LM | dict", cfg: ArchConfig, batch: dict, *,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token NLL (``model.py:293-302``): logits in fp32, then
+    ``log_softmax``; labels < 0 are masked; sum / max(count, 1).  The
+    batch's keys other than ``tokens`` and ``labels`` are the forward's
+    ``extras``.  ``params``: an LM, or a ``layer_tree``."""
+    logits = _forward(cfg, _tree(params), batch["tokens"],
+                      extras={k: v for k, v in batch.items()
+                              if k not in ("tokens", "labels")},
+                      remat=remat)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.take_along_dim(logp, labels.clamp(min=0)[..., None],
+                                dim=-1)[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ------------------------------------------------ the reference's leaves ---
+def _leaf_sources(model: LM) -> dict[str, list[torch.Tensor]]:
+    """Each reference leaf's path -> the port parameters it stacks (one
+    for an unstacked leaf), in stacking order."""
     cfg = model.cfg
-    extras = extras or {}
-    tokens = torch.as_tensor(tokens, device=model.device).long()
-    x = L.embed(model.embed, tokens)
-    if cfg.vision_stub and "patches" in extras:
-        patches = torch.as_tensor(extras["patches"], device=model.device)
-        x[:, :patches.shape[1]] = patches.to(x.dtype)
-    memory = None
-    if cfg.is_encdec:
-        if "enc_input" not in extras:
-            raise ValueError(f"{cfg.name}: an encoder-decoder forward needs "
-                             f"extras['enc_input'] (B, S_enc, d_model)")
-        memory = encode(model, extras["enc_input"])
-    for i, p in enumerate(model.layers):
-        x = _apply_sublayer(p, x, cfg, model.kind(i), memory=memory,
-                            pos0=pos0)
-    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return L.unembed(model.embed, x, cfg.logit_softcap)
+    src: dict[str, list[torch.Tensor]] = {}
+    for top, mod in (("embed", model.embed), ("final_norm", model.final_norm),
+                     ("enc_norm", model.enc_norm)):
+        if mod is not None:
+            for name, t in mod.items():
+                src[f"{top}/{name}"] = [t]
+
+    def stacked(top: str, layers: list) -> None:
+        for sub, params in layers[0].items():
+            for name in params.keys():
+                src[f"{top}/{sub}/{name}"] = [layer[sub][name]
+                                              for layer in layers]
+
+    for j in range(cfg.period):
+        stacked(f"blocks/sub{j}", list(model.layers)[j::cfg.period])
+    if model.encoder is not None:
+        stacked("encoder", list(model.encoder))
+    return dict(sorted(src.items()))
+
+
+def leaf_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
+    """The reference's leaf paths for ``cfg``, sorted, each with its shape
+    as ``stacked_params`` gives it, read off the model built on the meta
+    device: no weight is allocated, at any width."""
+    model = _build(cfg, None, torch.device("meta"), torch.float32)
+    top_level = ("embed/", "final_norm/", "enc_norm/")
+    return {path: (tuple(ts[0].shape) if path.startswith(top_level)
+                   else (len(ts), *ts[0].shape))
+            for path, ts in _leaf_sources(model).items()}
+
+
+def stacked_params(model: LM) -> dict[str, torch.Tensor]:
+    """The model's parameters as the reference's flat leaves, sorted by
+    path (jax's leaf order): ``embed/emb``, ``final_norm/scale``, ...;
+    sublayer j's weights of every period group stacked under
+    ``blocks/sub{j}/...`` to (n_groups, ...), the encoder's under
+    ``encoder/...`` to (n_enc_layers, ...).  New tensors (copies)."""
+    top_level = ("embed/", "final_norm/", "enc_norm/")
+    return {path: (ts[0].detach().clone() if path.startswith(top_level)
+                   else torch.stack([t.detach() for t in ts]))
+            for path, ts in _leaf_sources(model).items()}
+
+
+def layer_tree(flat: dict[str, torch.Tensor], cfg: ArchConfig) -> dict:
+    """The reference's flat leaves -> the layer tree the forward reads:
+    leaf ``blocks/sub{j}/m/w`` [g] becomes ``layers[g * period + j][m][w]``
+    and ``encoder/m/w`` [l] ``encoder[l][m][w]``, as views (``unbind``), so
+    a gradient taken through the tree lands on the stacked leaf."""
+    tree: dict = {"embed": {}, "final_norm": {}, "enc_norm": None,
+                  "layers": [{} for _ in range(cfg.n_groups * cfg.period)],
+                  "encoder": ([{} for _ in range(cfg.n_enc_layers)]
+                              if cfg.is_encdec else None)}
+    for path, t in flat.items():
+        parts = path.split("/")
+        if parts[0] == "blocks":
+            j = int(parts[1][len("sub"):])
+            for g, view in enumerate(t.unbind(0)):
+                layer = tree["layers"][g * cfg.period + j]
+                layer.setdefault(parts[2], {})[parts[3]] = view
+        elif parts[0] == "encoder":
+            for i, view in enumerate(t.unbind(0)):
+                tree["encoder"][i].setdefault(parts[1], {})[parts[2]] = view
+        else:
+            tree[parts[0]] = tree[parts[0]] or {}
+            tree[parts[0]][parts[1]] = t
+    return tree
 
 
 # ----------------------------------------------------------------- decode ---

@@ -135,7 +135,7 @@ def moe_ffn(p, x, *, n_experts, top_k=2, capacity_factor=1.25,
 
 def aux_load_balance_loss(p, x, *, n_experts, top_k=2) -> torch.Tensor:
     """Switch-style load-balance auxiliary loss (mean fraction * mean
-    prob); the forward value only (the port has no backward yet)."""
+    prob).  No loss the port trains calls it, as in the reference."""
     gates = torch.softmax((x @ p["router"]).to(torch.float32), dim=-1)
     _, top_idx = top_k_lower_index(gates, top_k)
     onehot = F.one_hot(top_idx, n_experts).sum(dim=1).to(torch.float32)

@@ -23,6 +23,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 from test_torch_kernels import _interpret_mode  # noqa: F401  (autouse)
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 5e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}

@@ -16,6 +16,8 @@ from repro.core import eval as jeval
 from repro.core import vamana as jvamana
 from repro_torch.core import eval as teval
 from repro_torch.core import vamana as tvamana
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 # One config of degree 16 puts the group in the 16 bucket.  Both
 # cross-package builds share one shape (n, d, configs, batch), so the

@@ -12,7 +12,10 @@ plain version start from the same bf16 inputs, accumulate in fp32 and
 round the output once.  The LM card against CPU: 1e-4 (full fp32, TF32
 off), 1e-3 for xlstm's smoke model; its Mamba, MoE, mLSTM and sLSTM
 modules 1e-5 (the mLSTM forward past one chunk 1e-4), with MoE routing
-identical.  Sharded serving card against CPU: exact on integer keys; the streaming
+identical.  The flash backward kernel against autograd of the plain
+form: 1e-4 (fp32) / 2e-2 (bf16) of each gradient's largest magnitude;
+train steps on the card against the CPU: 1e-4.  Sharded serving card
+against CPU: exact on integer keys; the streaming
 index and its snapshots and WAL likewise.  The tuner's GP fit card against CPU: 1e-3 of each field's largest
 magnitude; its (m)EHVI scores 1e-5.
 """
@@ -930,6 +933,117 @@ def _tuner_history(seed: int):
     y = np.stack([x[:, 0] + 0.2 * x[:, 1],
                   1 - x[:, 0] ** 2 + 0.1 * x[:, -1]], 1)
     return x, y + 0.1 * r.normal(size=y.shape), r.random((24, 3))
+
+
+# the backward: fp32 to 1e-4 of each gradient's largest magnitude (the
+# kernel sums in another order than autograd of the plain form); bf16 to
+# 2e-2 of it (the plain side computes from the same bf16 inputs in fp32,
+# the kernel rounds each gradient to bf16 once, and its P comes from the
+# forward's log-sum-exp)
+FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+@pytest.mark.parametrize("dh", [16, 50, 128, 224, 256])
+@pytest.mark.parametrize("dtype", list(FA_BWD_TOL))
+def test_flash_backward_kernel_matches_plain(card, case, dh, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    dt = FA_DTYPES[dtype][0]
+    r = np.random.default_rng(case["sq"] * 3 + case["sk"] + dh)
+    q, k, v, do = (torch.from_numpy(r.normal(size=(2, 3, n, dh)).astype(
+        np.float32)).to(card).to(dt)
+        for n in (case["sq"], case["sk"], case["sk"], case["sq"]))
+    kw = dict(causal=case["causal"], window=case["w"], softcap=case["cap"],
+              q_offset=case["off"])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out = fa.flash_attention(*leaves, **kw)
+    out.backward(do)
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (before + 1, bwd + 1)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_plain(
+        *(t.float() for t in (q, k, v)), do.float(), **kw)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == dt and torch.isfinite(t.grad).all()
+        err = (t.grad.float() - w).abs().max()
+        assert err <= FA_BWD_TOL[dtype] * max(w.abs().max(), 1e-6)
+
+
+def test_flash_backward_needs_the_forwards_lse(card):
+    """The forward writes each row's base-2 log-sum-exp when asked, +inf
+    for a row that attends nothing, and the prefill call asks for none."""
+    import math
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    r = np.random.default_rng(0)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(r.normal(size=(1, 2, 40, 64)).astype(
+            np.float32)).to(card).to(dt) for _ in range(3))
+        out, lse = fa._launch(q, k, v, causal=True, window=5, softcap=30.0,
+                              scale=None, q_offset=-3, with_lse=True)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                              k.float()) / 8.0
+        logits = 30.0 * torch.tanh(logits / 30.0)
+        mask = ref._window_mask(40, 40, -3, True, 5, device=card)
+        want = torch.logsumexp(torch.where(mask, logits, -torch.inf),
+                               -1) / math.log(2)
+        fin = torch.isfinite(want)
+        assert (~fin).any() and torch.all(lse[~fin] == torch.inf)
+        torch.testing.assert_close(lse[fin], want[fin], rtol=0, atol=1e-4)
+        assert fa._launch(q, k, v, causal=True, window=5, softcap=30.0,
+                          scale=None, q_offset=-3, with_lse=False)[1] is None
+
+
+@pytest.mark.parametrize("arch", ["granite_3_8b", "gemma2_9b",
+                                  "whisper_small"])
+def test_card_train_steps_equal_cpu(card, arch):
+    """Two fp32 train steps (2 microbatches, remat) from one init_state on
+    the card and on the CPU: losses and parameters to 1e-4; the card's
+    attention goes through the flash kernels both ways."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import data, train_loop
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = dataclasses.replace(registry.get_config(arch).smoke(), vocab=512)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    scfg = train_loop.StepConfig(microbatches=2, compute_dtype="float32",
+                                 remat=True)
+    init = train_loop.init_state(cfg, opt, scfg, seed=0, device="cpu")
+    ds = data.SyntheticLM(data.DataConfig(vocab=512, seq_len=32,
+                                          global_batch=4), device="cpu")
+    rng = np.random.default_rng(1)
+    batches = []
+    for s in range(2):
+        batch = ds.global_batch(s)
+        if cfg.is_encdec:
+            batch["enc_input"] = torch.from_numpy(rng.normal(
+                size=(4, 20, cfg.d_model)).astype(np.float32))
+        batches.append(batch)
+    states = {}
+    for dev in ("cpu", card):
+        state = train_loop.TrainState(
+            params={k: v.to(dev) for k, v in init.params.items()},
+            opt=init.opt._replace(
+                step=init.opt.step.to(dev),
+                mu={k: v.to(dev) for k, v in init.opt.mu.items()},
+                nu={k: v.to(dev) for k, v in init.opt.nu.items()}),
+            ef=None, step=init.step.to(dev))
+        step = train_loop.make_train_step(cfg, opt, scfg)
+        losses = []
+        bwd = fa.BWD_LAUNCHES
+        for batch in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+            losses.append(float(m["loss"]))
+        states[str(dev)] = (state, losses, fa.BWD_LAUNCHES - bwd)
+    (cs, cl, cb), (gs, gl, gb) = states["cpu"], states[str(card)]
+    assert cb == 0 and gb > 0
+    np.testing.assert_allclose(gl, cl, rtol=1e-4, atol=1e-4)
+    for k in cs.params:
+        torch.testing.assert_close(gs.params[k].cpu(), cs.params[k],
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_card_gp_and_mehvi_equal_cpu(card):

@@ -21,6 +21,7 @@ from repro_torch.core.tuner import ehvi as tehvi
 from repro_torch.core.tuner import params as tparams
 from repro_torch.core.tuner import vdtuner as tvd
 from test_torch_tuner import SCORE_TOL, _history, _surrogates
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -15,6 +15,8 @@ from repro.core.tuner import estimator as jest
 from repro_torch.core import convert
 from repro_torch.core import eval as teval
 from repro_torch.core.tuner import estimator as port_est
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 CFGS = [dict(L=24, M=8, alpha=1.0), dict(L=32, M=12, alpha=1.2),
         dict(L=28, M=12, alpha=1.4)]

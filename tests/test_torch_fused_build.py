@@ -28,6 +28,8 @@ from repro_torch.core import search as tsearch
 from repro_torch.core import vamana as tvamana
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 METRICS = ("l2", "ip", "cosine")
 PS = [tvamana.VamanaParams(L=16, M=8, alpha=1.1),

@@ -19,6 +19,8 @@ from repro.core import search as jsearch
 from repro_torch.core import graph as tgraph
 from repro_torch.core import search as tsearch
 from test_oracle import _case, oracle_search
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 N = 64
 

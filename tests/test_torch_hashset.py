@@ -14,6 +14,8 @@ import torch
 
 from repro.core import hashset as jhash
 from repro_torch.core import hashset as thash
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 # one compiled program per table shape instead of one per primitive
 _j_lookup_insert = jax.jit(jhash.lookup_insert)

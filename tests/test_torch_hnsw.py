@@ -30,22 +30,12 @@ from repro_torch.core import graph as tgraph
 from repro_torch.core import hnsw as thnsw
 from repro_torch.core.tuner import estimator as port_est
 from repro_torch.core.tuner import params as tparams
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 # one efc bucket (32) and one degree bucket (16): the reference compiles
 # each of its programs once for the whole file
 CFGS = [(24, 10), (32, 12)]
 N, D, B, SEED = 400, 8, 64, 3
-
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """These tensors are tiny: one intra-op thread does the work, while a
-    team of them only spins against the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _int_data(n=N, d=D, seed=0):

@@ -42,7 +42,8 @@ def test_cuda_source_for_every_kernel_on_the_path():
     from repro_torch.kernels import _build, gather_distance, l2_distance
     assert set(_build.SOURCES) == {
         p.stem for p in (PKG / "kernels" / "csrc").glob("*.cu")}
-    assert set(_build.SOURCES) == {"distance", "flash_attention", "prune"}
+    assert set(_build.SOURCES) == {"distance", "flash_attention",
+                                   "flash_attention_bwd", "prune"}
     cu = (PKG / "kernels" / "csrc" / "distance.cu").read_text()
     for mod, entry, body, counter in (
             (gather_distance, "gather_distance_f32",
@@ -94,6 +95,28 @@ def test_cuda_source_for_every_kernel_on_the_path():
     assert "launch_gather_sq8<" in body("int gather_distance_sq8(")
     assert "gather_distance_sq8_kernel<KIND, true>" in body(
         "void launch_gather_sq8(")
+
+
+def test_flash_backward_source_defines_the_wrapper_entry_points():
+    """The flash wrapper's backward names the entry points
+    flash_attention_bwd.cu defines, builds that source, keeps its launch
+    counter, and sums without atomics; the forward entries take the
+    log-sum-exp buffer the backward reads."""
+    from repro_torch.kernels import flash_attention as fa
+    cu = (PKG / "kernels" / "csrc" / "flash_attention_bwd.cu").read_text()
+    fwd = (PKG / "kernels" / "csrc" / "flash_attention.cu").read_text()
+    wrapper = pathlib.Path(fa.__file__).read_text()
+    for entry in fa._BWD_ENTRIES.values():
+        assert f"int {entry}(" in cu and f'"{entry}"' in wrapper
+    for kernel in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                   "flash_bwd_dq_kernel"):
+        assert f"{kernel}" in cu
+    assert "atomicAdd" not in cu and "red." not in cu
+    assert '_build.load("flash_attention_bwd")' in wrapper
+    assert "BWD_LAUNCHES += 1" in wrapper and fa.BWD_LAUNCHES >= 0
+    for entry in fa._ENTRIES.values():
+        head = fwd[fwd.index(f"int {entry}("):]
+        assert "float* lse, void* stream)" in head[:head.index("{")]
 
 
 def test_prune_source_defines_the_wrapper_entry_point():

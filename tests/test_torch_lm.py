@@ -39,6 +39,8 @@ from repro_torch.serve import engine as TE
 from repro_torch.serve import resilience as tres
 from repro_torch.serve import retrieval as tret
 from repro_torch.serve import streaming as tstream
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 ARCHS = ["gemma2_9b", "granite_3_8b"]
 TOL = dict(rtol=1e-4, atol=1e-4)

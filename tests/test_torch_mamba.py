@@ -28,18 +28,10 @@ from repro_torch.models import model as TM
 from test_torch_lm import (Pairs, check_decode, check_engine,
                            check_forward, check_init,
                            teacher_forced_vs_forward)
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 D = 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Small tensors: one intra-op thread does the work."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -27,21 +27,11 @@ from repro_torch.core import nsg as tnsg
 from repro_torch.core.graph import MultiGraph
 from repro_torch.core.tuner import estimator as port_est
 from repro_torch.core.tuner import params as tparams
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 # one K bucket (16), L bucket (32) and degree bucket (16)
 CFGS = [(10, 24, 10), (12, 32, 12)]
 N, D, B = 400, 8, 64
-
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """These tensors are tiny: one intra-op thread does the work, while a
-    team of them only spins against the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _int_data(n=N, d=D, seed=0):

@@ -39,6 +39,7 @@ from repro_torch.serve import resilience as tres
 from repro_torch.serve import retrieval as tret
 from repro_torch.serve import streaming as tstream
 from repro_torch.train import checkpoint as tckpt
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 D, S, NQ = 8, 4, 40
 N_FLAT, N_SHARD = 256, 128
@@ -46,16 +47,6 @@ TOP_K, EF, BLOCK = 8, 16, 16
 PARAMS = (24, 8, 1.2)
 SEARCH = dict(top_k=TOP_K, ef=EF, block_size=BLOCK)
 BUILD = dict(metric="l2", seed=0, batch_size=128, build_impl="fused")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """These tensors are tiny: one intra-op thread does the work, while a
-    team of them only spins against the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,8 @@ from repro.serve import retrieval as jret
 from repro_torch.core import convert
 from repro_torch.core import vamana as tvamana
 from repro_torch.serve import retrieval as tret
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 N, D, B = 600, 8, 40
 PARAMS = (24, 12, 1.0)

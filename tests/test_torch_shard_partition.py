@@ -27,6 +27,8 @@ from repro.core import graph as jgraph
 from repro_torch.core import _threefry
 from repro_torch.core import graph as tgraph
 from repro_torch.core.graph import INVALID
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 METRICS = ["l2", "ip", "cosine"]
 

@@ -31,6 +31,8 @@ from repro_torch.core import convert
 from repro_torch.core import graph as tgraph
 from repro_torch.core import search as tsearch
 from repro_torch.core.graph import INVALID
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 N, D, B, S = 400, 8, 16, 4
 K, EF = 8, 24

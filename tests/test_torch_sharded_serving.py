@@ -23,6 +23,8 @@ from repro_torch.core import convert
 from repro_torch.core import graph as tgraph
 from repro_torch.core import vamana as tvamana
 from repro_torch.serve import retrieval as tret
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 N, D, B, S = 600, 8, 40, 4
 PARAMS = (24, 12, 1.0)

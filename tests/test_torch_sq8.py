@@ -25,6 +25,8 @@ from repro_torch.core import metric as tmetric
 from repro_torch.kernels import gather_distance as tgd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 SHAPES = [(200, 65, 33)]
 METRICS = ["l2", "ip", "cosine"]

@@ -19,6 +19,8 @@ from repro.core.tuner import estimator as jest
 from repro.core.tuner import fastpgt as jfast
 from repro_torch.core.tuner import estimator as test_
 from repro_torch.core.tuner import fastpgt as tfast
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 MODES = ("fastpgt", "vdtuner", "random", "random_plus", "grid", "ottertune")
 

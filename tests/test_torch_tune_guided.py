@@ -15,6 +15,7 @@ from repro.core.tuner import fastpgt as jfast
 from repro_torch.core.counters import BuildCounters as TCounters
 from repro_torch.core.tuner import estimator as test_
 from repro_torch.core.tuner import fastpgt as tfast
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def _objectives(cfg):

@@ -32,6 +32,8 @@ from repro_torch.core import _threefry, convert
 from repro_torch.core.tuner import ehvi as tehvi
 from repro_torch.core.tuner import gp as tgp
 from repro_torch.core.tuner import pareto as tpareto
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
+
 
 SCORE_TOL = 1e-5
 
