@@ -13,10 +13,13 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  ptxas's registers, stack and spills for each distance,
                  flash and prune kernel (``pairwise_ptxas`` names each
                  pairwise body by its template arguments; ``flash_ptxas``
-                 both flash bodies, ``prune_ptxas`` both prune bodies), the
-                 bf16 and fp32 flash bodies' dynamic shared memory per
-                 padded head dim, and the largest L of the shared-memory
-                 prune body (checked against the wrapper's).
+                 both flash bodies, ``prune_ptxas`` both prune bodies,
+                 ``flash_bwd_ptxas`` every flash backward kernel, whose
+                 spills fail the run: ``flash_bwd_spills``), the bf16 and
+                 fp32 flash bodies' dynamic shared memory per padded head
+                 dim (``flash_bwd_smem_bytes`` the backward's largest
+                 kernel), and the largest L of the shared-memory prune
+                 body (checked against the wrapper's).
 3. kernels    -- each CUDA kernel (fp32 and int8 gather, fp32 and int8
                  pairwise, flash attention, the prune recurrence) against
                  its plain PyTorch
@@ -66,7 +69,10 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  causal in bf16 and fp32 and at gemma2's (1, 16, 4096,
                  224) at window 4096 and soft-cap 50, beside the plain
                  backward, SDPA's backward at soft-cap 0 and the bound of
-                 5 products on the tensor cores.
+                 5 products on the tensor cores; at each timed shape two
+                 launches bit-identical and the D, dk / dv and dq kernels
+                 timed apart (``split``: CUDA events the launch records
+                 between them).
 4. exact      -- (run after tune) an integer-coordinate corpus (n=2000,
                  d=128, coordinates in [-4, 4]) built with each family's
                  4 configs (Vamana, HNSW, NSG): the fused build on the
@@ -634,6 +640,17 @@ def phase_build() -> None:
                              f"{smem_max_l()}, the wrapper says "
                              f"{prune.SMEM_MAX_L}")
     distance = _build.ptxas_summary(_build.PTXAS.get("distance", ""))
+    bwd_smem = libs["flash_attention_bwd"].flash_attention_bwd_smem
+    bwd_smem.argtypes, bwd_smem.restype = [ctypes.c_int], ctypes.c_int
+    bwd = _build.ptxas_summary(_build.PTXAS.get("flash_attention_bwd", ""),
+                               "flash_bwd")
+    spilled = [r["kernel"] for r in bwd
+               if r.get("spill_store_bytes", 0) or r.get("spill_load_bytes",
+                                                         0)]
+    if _build.BUILD_SECONDS.get("flash_attention_bwd") and (
+            len(bwd) < 15 or spilled):
+        raise AssertionError(f"flash_attention_bwd.cu: {len(bwd)} kernels "
+                             f"in ptxas's report, spills in {spilled}")
     emit("build", sources=[f"{n}.cu" for n in sources],
          seconds=time.perf_counter() - t0, nvcc_seconds=_build.BUILD_SECONDS,
          flags=_build.NVCC_FLAGS,
@@ -643,6 +660,9 @@ def phase_build() -> None:
              _build.PTXAS.get("flash_attention", ""), "flash_attention"),
          flash_bf16_smem_bytes={dp: smem(dp) for dp in (64, 128, 224, 256)},
          flash_f32_smem_bytes={dp: smem_f32(dp)
+                               for dp in (64, 128, 224, 256)},
+         flash_bwd_ptxas=bwd, flash_bwd_spills=spilled,
+         flash_bwd_smem_bytes={dp: bwd_smem(dp)
                                for dp in (64, 128, 224, 256)},
          prune_ptxas=_build.ptxas_summary(_build.PTXAS.get("prune", ""),
                                           "prune_recurrence"),
@@ -4249,6 +4269,32 @@ def phase_lm_small_full(counters: dict) -> dict:
 
 
 # ------------------------------------------------------------- training ---
+def _bwd_split_ms(fa, args, kw, reps: int = 5) -> dict:
+    """The backward's three kernels timed apart: the launch records CUDA
+    events before D, after D, after dk / dv and after dq
+    (``flash_attention_bwd_marks``); the median of ``reps`` launches of
+    each span, in ms."""
+    import torch
+    from repro_torch.kernels import _build
+    marks = _build.load("flash_attention_bwd").flash_attention_bwd_marks
+    marks.argtypes, marks.restype = [ctypes.c_void_p] * 4, ctypes.c_int
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for e in events:
+        e.record()                    # the event handles exist once recorded
+    torch.cuda.synchronize()
+    spans = {"delta_ms": [], "dkdv_ms": [], "dq_ms": []}
+    marks(*(e.cuda_event for e in events))
+    try:
+        for _ in range(reps):
+            fa.flash_attention_backward(*args, **kw)
+            events[3].synchronize()
+            for i, name in enumerate(spans):
+                spans[name].append(events[i].elapsed_time(events[i + 1]))
+    finally:
+        marks(None, None, None, None)
+    return {name: sorted(x)[len(x) // 2] for name, x in spans.items()}
+
+
 def _flash_bwd_row(fa, gen) -> dict:
     """The flash backward kernels against their plain version (autograd of
     the plain forward, recomputed) at every FA_CASES case, fp32 and bf16,
@@ -4256,7 +4302,8 @@ def _flash_bwd_row(fa, gen) -> dict:
     (2, 32, 4096, 128) causal in bf16 and fp32, and gemma2's (1, 16, 4096,
     224) at window 4096 and soft-cap 50 in bf16.  Each timed beside the
     plain backward and SDPA's backward at soft-cap 0 (the nearest library
-    call: it cannot soft-cap)."""
+    call: it cannot soft-cap), with the D, dk / dv and dq kernels timed
+    apart (``split``) and two launches held bit-identical."""
     import torch
     import torch.nn.functional as F
     errs = {"float32": 0.0, "bfloat16": 0.0}
@@ -4300,11 +4347,19 @@ def _flash_bwd_row(fa, gen) -> dict:
         q, k, v, out, lse, do = check(b, h, s, s, dh, dt, kw)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        first = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        second = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"flash_attention_bwd {(b, h, s, dh)} "
+                                 f"{dt}: two launches differ")
+        del first, second
         row = timed_row(
             lambda: fa.flash_attention_backward(q, k, v, out, lse, do, **kw),
             lambda: fa.flash_attention_backward_plain(q, k, v, do, **kw),
             lambda: torch.autograd.grad(lib_out, leaves, do,
                                         retain_graph=True), reps=2)
+        row["split"] = _bwd_split_ms(fa, (q, k, v, out, lse, do), kw)
+        row["bit_identical"] = True
         pairs = _attended_pairs(s, s, True, window, 0)
         flops = 5 * 2.0 * b * h * pairs * dh
         esize = q.element_size()
@@ -4325,7 +4380,7 @@ def _flash_bwd_row(fa, gen) -> dict:
     gemma = timed(1, 16, TRAIN_S, 224, torch.bfloat16, TRAIN_S, 50.0)
     head = {k: bf16[k] for k in (
         "ms", "ms_spread", "plain_ms", "plain_ms_spread", "library_ms",
-        "library_ms_spread", "bound_ms", "bound_by")}
+        "library_ms_spread", "bound_ms", "bound_by", "split")}
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 replaces="none: port-only; the gradient of "
@@ -4341,10 +4396,15 @@ def _flash_bwd_row(fa, gen) -> dict:
                 bound_note="5 products x 2 pairs dh flops a head (the "
                            "attended pairs: causal halves them) at 989 "
                            "TFLOP/s bf16, or 495/3 TFLOP/s fp32 (3xTF32); "
-                           "this body runs 7 products on the CUDA cores",
+                           "these bodies run 7 products on the tensor "
+                           "cores (wgmma bf16, 3xTF32 mma.sync fp32; 9 "
+                           "at dh > 128, where dk / dv's warps "
+                           "split the columns)",
                 kernels=["flash_bwd_delta_kernel",
-                         "flash_bwd_dkdv_kernel<T, DP>",
-                         "flash_bwd_dq_kernel<T, DP>"],
+                         "flash_bwd_dkdv_wgmma_kernel<DP, SPLIT>",
+                         "flash_bwd_dq_wgmma_kernel<DP>",
+                         "flash_bwd_dkdv_tf32_kernel<DP, SPLIT>",
+                         "flash_bwd_dq_tf32_kernel<DP>"],
                 library="torch.autograd.grad through "
                         "scaled_dot_product_attention(is_causal=True) at "
                         "softcap 0 (forward outside the timing)",

@@ -11,8 +11,10 @@ first use into ``build/kernels/lib<name>.so`` at the repository root
 ``-Xptxas=-v`` makes ptxas report each kernel's registers, stack and
 spills; ``PTXAS`` keeps that report per library, ``ptxas_summary`` reads it.
 
-A library is rebuilt when its source is newer than it.  Nothing here runs at
-import time: the CPU tests import every module without nvcc present.
+A library is rebuilt when its source, or a ``csrc/`` header the source
+includes (``#include "x.cuh"``, followed through headers), is newer than it.
+Nothing here runs at import time: the CPU tests import every module without
+nvcc present.
 """
 from __future__ import annotations
 
@@ -50,11 +52,38 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
+
+
+def inputs(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
+    or through another header."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())
+                 if (CSRC / inc).is_file()]
+    return found
+
+
+def stale(name: str) -> bool:
+    """Is ``build/kernels/lib<name>.so`` missing, or older than one of its
+    inputs?"""
+    out = BUILD_DIR / f"lib{name}.so"
+    if not out.exists():
+        return True
+    built = out.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in inputs(name))
+
+
 def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` if the library is missing or stale."""
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    if not stale(name):
         BUILD_SECONDS.setdefault(name, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -27,7 +27,11 @@ goes through ``FlashAttention``, an autograd Function: on the card its
 forward asks the kernel for each row's log-sum-exp as well, and its
 backward launches the hand-written kernels of ``csrc/flash_attention_bwd.cu``
 (``flash_attention_backward``; ``BWD_LAUNCHES`` counts its calls), which
-recompute the probabilities from q, k and the log-sum-exp with no atomics.
+recompute the probabilities from q, k and the log-sum-exp with no atomics,
+on the tensor cores: wgmma in bf16 (P and dS rounded once to bf16 as
+product operands, ``tools/emulate_flash_bwd_bf16.py``), 3xTF32
+``mma.sync`` in fp32; one kernel a key tile for dk / dv, one a query tile
+for dq.
 The reference has no backward kernel (its Pallas call has no VJP): its
 gradient is autodiff through the plain forms, and the plain backward here,
 ``flash_attention_backward_plain``, is exactly that, recomputed inside the

@@ -969,6 +969,28 @@ def test_flash_backward_kernel_matches_plain(card, case, dh, dtype):
         assert err <= FA_BWD_TOL[dtype] * max(w.abs().max(), 1e-6)
 
 
+@pytest.mark.parametrize("dtype", list(FA_BWD_TOL))
+def test_flash_backward_is_bit_identical(card, dtype):
+    """Two backward launches on the same inputs give the same gradients
+    bit for bit (no atomics: every sum in a fixed order), at a soft-capped
+    window over several query and key tiles and at granite's head dim."""
+    from repro_torch.kernels import flash_attention as fa
+    dt = FA_DTYPES[dtype][0]
+    r = np.random.default_rng(7)
+    for dh, kw in ((128, dict(causal=True, window=0, softcap=0.0,
+                              q_offset=0)),
+                   (224, dict(causal=True, window=100, softcap=50.0,
+                              q_offset=0))):
+        q, k, v, do = (torch.from_numpy(r.normal(size=(2, 3, 300, dh)).astype(
+            np.float32)).to(card).to(dt) for _ in range(4))
+        out, lse = fa._launch(q, k, v, scale=None, with_lse=True, **kw)
+        first = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        second = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
 def test_flash_backward_needs_the_forwards_lse(card):
     """The forward writes each row's base-2 log-sum-exp when asked, +inf
     for a row that attends nothing, and the prefill call asks for none."""

@@ -1,6 +1,7 @@
 """The port stands alone: no jax, no ``repro`` import, a CUDA source for
 every kernel on its path, and no silent CPU fallback at the entry points."""
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -108,10 +109,49 @@ def test_flash_backward_source_defines_the_wrapper_entry_points():
     wrapper = pathlib.Path(fa.__file__).read_text()
     for entry in fa._BWD_ENTRIES.values():
         assert f"int {entry}(" in cu and f'"{entry}"' in wrapper
-    for kernel in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                   "flash_bwd_dq_kernel"):
+    for kernel in ("flash_bwd_delta_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                   "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_tf32_kernel",
+                   "flash_bwd_dq_tf32_kernel"):
         assert f"{kernel}" in cu
     assert "atomicAdd" not in cu and "red." not in cu
+    # bf16 reaches only the wgmma bodies, fp32 only the 3xTF32 mma.sync
+    # ones, for every dh the entries take; no SIMT FMA body is left (the D
+    # pass's dot product is the only fmaf)
+    def body(start):
+        head = cu[cu.index(start):]
+        return head[:head.index("\n}\n")]
+
+    bf16 = body("int flash_attention_bwd_bf16(")
+    f32 = body("int flash_attention_bwd_f32(")
+    assert bf16.count("launch_wgmma_bwd<") == 4
+    assert "launch_tf32_bwd<" not in bf16
+    assert f32.count("launch_tf32_bwd<") == 3
+    assert "launch_wgmma_bwd<" not in f32
+    launch_bf16 = body("int launch_wgmma_bwd(")
+    assert "flash_bwd_dkdv_wgmma_kernel<DP, SPLIT>" in launch_bf16
+    assert "flash_bwd_dq_wgmma_kernel<DP><<<" in launch_bf16
+    launch_f32 = body("int launch_tf32_bwd(")
+    assert "flash_bwd_dkdv_tf32_kernel<DP, SPLIT>" in launch_f32
+    assert "flash_bwd_dq_tf32_kernel<DP><<<" in launch_f32
+    assert "wgmma_ss_n64(" in cu and "wgmma_rs<" in cu
+    assert "mma_3xtf32(" in cu
+    # fmaf only in the D pass's dot product and the bf16 body's scalar
+    # P / dS math, never in a product loop
+    spans = [(cu.index(head), cu.index("\n}\n", cu.index(head)))
+             for head in ("void flash_bwd_delta_kernel(", "void wg_p_ds(")]
+    uses = [m.start() for m in re.finditer(r"fmaf\(", cu)]
+    assert uses and all(any(a < u < b for a, b in spans) for u in uses)
+    for gone in ("dot_tile", "acc_tile", "load_tile<"):
+        assert gone not in cu
+    # both flash sources take the shared machinery from one header
+    hdr = (PKG / "kernels" / "csrc" / "hopper.cuh").read_text()
+    for src in (cu, fwd):
+        assert '#include "hopper.cuh"' in src
+    for helper in ("uint64_t sw128_desc(", "void tma_load(",
+                   "void wgmma_ss_n64(", "void wgmma_rs_n256(",
+                   "int tensor_map(", "void split_tf32(",
+                   "void mma_3xtf32(", "void load_f32("):
+        assert helper in hdr and helper not in cu and helper not in fwd
     assert '_build.load("flash_attention_bwd")' in wrapper
     assert "BWD_LAUNCHES += 1" in wrapper and fa.BWD_LAUNCHES >= 0
     for entry in fa._ENTRIES.values():
@@ -146,6 +186,7 @@ def test_flash_attention_source_defines_the_wrapper_entry_points():
     (one per dtype), builds that source, and keeps its launch counter."""
     from repro_torch.kernels import flash_attention
     cu = (PKG / "kernels" / "csrc" / "flash_attention.cu").read_text()
+    hdr = (PKG / "kernels" / "csrc" / "hopper.cuh").read_text()
     wrapper = pathlib.Path(flash_attention.__file__).read_text()
     assert "flash_attention_tf32_kernel" in cu
     # bf16 reaches only the wgmma body, fp32 only the 3xTF32 mma.sync one;
@@ -157,9 +198,14 @@ def test_flash_attention_source_defines_the_wrapper_entry_points():
     assert "launch_wgmma<" in bf16_entry and "launch_tf32<" not in bf16_entry
     assert "launch_tf32<" in f32_entry and "launch_wgmma<" not in f32_entry
     assert "flash_attention_kernel" not in cu
-    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in cu
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in cu
-    assert "cp.async.bulk.tensor.3d" in cu
+    # the PTX of the products and the TMA copy sit in the header the
+    # source includes
+    assert '#include "hopper.cuh"' in cu
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in hdr
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in hdr
+    assert "cp.async.bulk.tensor.3d" in hdr
+    assert "wgmma_ss_n64(" in cu and "mma_3xtf32(" in cu
+    assert "tma_load(" in cu
     assert set(flash_attention._ENTRIES.values()) == {
         "flash_attention_f32", "flash_attention_bf16"}
     for entry in flash_attention._ENTRIES.values():
@@ -210,6 +256,46 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert engine.ServeEngine(cpu, cfg).device == torch.device("cpu")
+
+
+def test_build_rebuilds_when_an_included_header_changes(tmp_path,
+                                                        monkeypatch):
+    """A library is stale when its source or a csrc/ header the source
+    includes (also through another header) is newer than it; headers it
+    does not include and system headers do not count."""
+    import os
+
+    from repro_torch.kernels import _build
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    out.mkdir()
+    (csrc / "a.cu").write_text('#include <cuda.h>\n#include "x.cuh"\n')
+    (csrc / "x.cuh").write_text('#pragma once\n  #include "y.cuh"\n')
+    (csrc / "y.cuh").write_text("#pragma once\n")
+    (csrc / "z.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    assert {p.name for p in _build.inputs("a")} == {"a.cu", "x.cuh",
+                                                    "y.cuh"}
+    assert _build.stale("a")                      # no library yet
+    lib = out / "liba.so"
+    lib.write_bytes(b"")
+    for p in csrc.iterdir():
+        os.utime(p, (1000, 1000))
+    os.utime(lib, (2000, 2000))
+    assert not _build.stale("a")
+    os.utime(csrc / "z.cuh", (3000, 3000))        # not included
+    assert not _build.stale("a")
+    os.utime(csrc / "y.cuh", (3000, 3000))        # included through x.cuh
+    assert _build.stale("a")
+    os.utime(lib, (4000, 4000))
+    assert not _build.stale("a")
+    os.utime(csrc / "a.cu", (5000, 5000))
+    assert _build.stale("a")
+    # the port's own flash sources both read hopper.cuh
+    monkeypatch.undo()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert "hopper.cuh" in {p.name for p in _build.inputs(name)}
 
 
 def test_ptxas_summary_reads_registers_and_spills():
