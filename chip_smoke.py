@@ -183,6 +183,24 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  recall >= COSINE_RECALL_FLOOR, every shard within the
                  capacity, the gather, int8 gather and prune kernels
                  launched.
+7c'. serve_mesh -- serve_sharded's index searched across ranks
+                 (``distributed.sharding.search_mesh``, shards on a
+                 one-axis "shard" mesh): (a) one rank under NCCL (a
+                 world-size-1 group on the card, the production backend's
+                 code path), scatter-gather and routed p=2; (b) four
+                 ranks under gloo, each a subprocess of this
+                 script on the same card (``--mesh-rank``, started after
+                 the kernel build, so none compiles), each restoring its 2
+                 shards from one snapshot (``load_index(mesh=)``):
+                 scatter-gather, routed p=2 and p=2 with shard 0 dead,
+                 and scatter-gather with 64 tombstones, all on the
+                 index's sq8 codes.
+                 Every run's pools, distances and counters equal the
+                 one-process search's bit for bit, and every rank
+                 launches the gather and int8 gather kernels; QPS and
+                 host syncs by rank.  Four processes share one card: no
+                 scaling figure.  Not measured: NCCL across two or more
+                 cards, NVLink traffic, per-card scaling.
 7d. stream_exact -- the streaming mutable index card == CPU on the
                  serving path's scale-1 integer corpus (n=2000, d=128)
                  under l2, unsharded and S=4 chunked: the card's index
@@ -316,6 +334,15 @@ Phases, each printing one JSON line; any failure ends in a non-zero exit:
                  step), a profiled step's idle share; before it one fp32
                  step at full width on 2 layers, B = 1, S = 256, the card
                  against the CPU (loss 1e-4, moments normwise 1e-4).
+20. dryrun     -- (after lm_train_width) two processes of
+                 ``python -m repro_torch.launch.dryrun`` count two
+                 cells on the meta device over a fake process group:
+                 granite_3_8b x train_4k on the single-pod (16, 16) mesh
+                 and lm_train_width's cell (8 layers, (1, 1) mesh, 8 x
+                 4096 tokens in 4 microbatches); their counted FLOPs
+                 beside this script's model-FLOP count, and the
+                 roofline's step-time bound (``launch.roofline``, the
+                 H100's constants) beside lm_train_width's measured step.
 
 The CPU mirror: the CPU side of exact, of shard_exact and of xlstm's
 noise in train_exact runs in a second process of this script
@@ -332,6 +359,9 @@ two tune runs, the serving ground truth ``serve_gt``, serve,
 serve_sharded, stream_exact, stream and its ground truth ``stream_gt``,
 each LM phase and each training phase) and read just after; every
 kernel of that path must have launched.
+
+The dry-run (phase 20) is two more processes, run side by side while
+lm_train_width keeps the card busy; they die with the script.
 
 ``--profile N`` runs only device, build and a profile of one fused
 grouped build of N points (after a first build that captures its step):
@@ -417,6 +447,16 @@ COSINE_RECALL_FLOOR = 0.65
 SHARDS = 8                     # serve_sharded: k-means shards of the cache
 SHARD_PS = [1, 2, 4]           # serve_sharded: routed shards below S
 SHARD_EF = 128
+MESH_RANKS = 4                 # serve_mesh: gloo ranks sharing the card
+MESH_TOMBSTONES = 64           # serve_mesh: deleted ids of the tomb run
+# phase 20: the dry-run's cells (``launch/dryrun.py`` arguments)
+DRYRUN_CELLS = {
+    "granite_train_4k_single": ["--arch", "granite_3_8b", "--shape",
+                                "train_4k", "--mesh", "single"],
+    "lm_train_width": ["--arch", "granite_3_8b", "--shape", "train_4k",
+                       "--mesh", "debug", "--layers", "8",
+                       "--global-batch", "8", "--microbatches", "4"],
+}
 # the largest shard k-means may leave: ceil(n/S * (1 + KMEANS_CAP_SLACK))
 SHARD_CAP = -(-N_CTX * 105 // (SHARDS * 100))
 SHARD_EXACT = dict(n=2000, nq=100, shards=4, ef=64, tombstones=16)
@@ -2644,10 +2684,12 @@ def phase_shard_exact(mirror) -> None:
     rows = {}
     for key, card in sides["cuda"].items():
         side = dict(cuda=card, cpu=sides["cpu"][key])
-        for f in dataclasses.fields(side["cpu"]["sg"]):
-            if not torch.equal(getattr(card["sg"], f.name).cpu(),
-                               getattr(side["cpu"]["sg"], f.name)):
-                raise AssertionError(f"shard_exact {key}: card {f.name} != "
+        for name in graph.SHARD_FIELDS:
+            want = getattr(side["cpu"]["sg"], name)
+            got = getattr(card["sg"], name)
+            if (got is None) != (want is None) or (
+                    want is not None and not torch.equal(got.cpu(), want)):
+                raise AssertionError(f"shard_exact {key}: card {name} != "
                                      f"CPU")
         stats = {}
         for name in card["runs"]:
@@ -2871,7 +2913,286 @@ def phase_serve_sharded(counters: dict, data: dict) -> tuple[dict, object]:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serve_sharded path")
-    return launches, idx
+    return launches, idx, results
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _die_with_parent() -> None:
+    """A child's ``preexec_fn``: PR_SET_PDEATHSIG, so it ends with this
+    script."""
+    import signal
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+
+
+# serve_mesh's runs through retrieval_attention_batched, as serve_sharded
+# ran them: (name, routed shards, shard 0 dead), on the index's own sq8
+# codes (the fp32 path's are the same code and serve_sharded's runs)
+MESH_RUNS = [("scatter_gather", None, False), ("routed_2", 2, False),
+             ("routed_2_shard_0_dead", 2, True)]
+MESH_MODE = "sq8"
+
+
+def _tomb_search(idx, queries, tomb):
+    """Scatter-gather with tombstones over ``idx``'s shards (placed or
+    not), sq8, cut into retrieval_attention_batched's blocks: pools and
+    distances concatenated, counters summed, hops the maximum."""
+    import types
+    import torch
+    from repro_torch.core import metric as metric_lib, search
+    qs = metric_lib.resolve(idx.metric).prepare(queries)
+    rows = torch.arange(BLOCK, device=qs.device)
+    ids, dist, n_fresh, n_comp, hops = [], [], 0, 0, 0
+    for off in range(0, qs.shape[0], BLOCK):
+        nrows = min(BLOCK, qs.shape[0] - off)
+        qb = qs.new_zeros((BLOCK, qs.shape[1]))
+        qb[:nrows] = qs[off:off + nrows]
+        res = search.sharded_knn_search(
+            idx.shards, qb, TOP_K, SHARD_EF, metric=idx.kernel,
+            visited_impl="hash", expand_width=4, row_mask=rows < nrows,
+            tombstone_ids=tomb, quantize="sq8")
+        ids.append(res.pool_ids[:nrows])
+        dist.append(res.pool_dist[:nrows])
+        n_fresh, n_comp = n_fresh + int(res.n_fresh), n_comp + int(
+            res.n_computed)
+        hops = max(hops, int(res.hops))
+    return types.SimpleNamespace(pool_ids=torch.cat(ids),
+                                 pool_dist=torch.cat(dist), n_fresh=n_fresh,
+                                 n_computed=n_comp, hops=hops)
+
+
+def mesh_searches(idx, queries, tomb) -> dict:
+    """serve_mesh's runs over ``idx``: (run, quantize) -> (result,
+    seconds, host syncs)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import search
+    from repro_torch.serve import retrieval
+    dead = np.ones(SHARDS, bool)
+    dead[0] = False
+    kw = dict(top_k=TOP_K, ef=SHARD_EF, block_size=BLOCK,
+              visited_impl="hash", expand_width=4)
+    out = {}
+    for name, p, kill in MESH_RUNS:
+        syncs = search.HOST_SYNCS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, res = retrieval.retrieval_attention_batched(
+            idx, queries, routed_shards=p, shard_mask=dead if kill else None,
+            quantize=MESH_MODE, **kw)
+        torch.cuda.synchronize()
+        out[(name, MESH_MODE)] = (res, time.perf_counter() - t0,
+                                  search.HOST_SYNCS - syncs)
+    syncs = search.HOST_SYNCS
+    t0 = time.perf_counter()
+    res = _tomb_search(idx, queries, tomb)
+    torch.cuda.synchronize()
+    out[("scatter_gather_tombstones", "sq8")] = (
+        res, time.perf_counter() - t0, search.HOST_SYNCS - syncs)
+    return out
+
+
+def mesh_rank(rank: int, path: str, port: int) -> int:
+    """``--mesh-rank R --mesh-dir PATH --mesh-port P``: one gloo rank of
+    serve_mesh on the card.  Restores its shards from PATH's snapshot on
+    ``search_mesh(SHARDS)``, runs ``mesh_searches`` and saves its pools,
+    counters, seconds, host syncs and launch counts to PATH."""
+    import datetime
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    _die_with_parent()
+    from repro_torch import resolve_device
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import gather_distance
+    from repro_torch.serve import resilience
+    resolve_device("cuda")
+    # the searches run on the card; four ranks' default thread teams on
+    # the host's cores would only spin against each other
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=MESH_RANKS, timeout=datetime.timedelta(seconds=600))
+    with np.load(os.path.join(path, "queries.npz")) as z:
+        queries = torch.from_numpy(z["queries"]).cuda()
+        tomb = torch.from_numpy(z["tomb"]).cuda()
+    t0 = time.perf_counter()
+    idx = resilience.load_index(path, mesh=sharding.search_mesh(SHARDS),
+                                device="cuda")
+    load_s = time.perf_counter() - t0
+    gather_distance.LAUNCHES = gather_distance.LAUNCHES_SQ8 = 0
+    runs = mesh_searches(idx, queries, tomb)
+    out = dict(rank=rank, load_s=load_s,
+               first=idx.shards.first_shard, local=idx.shards.local_shards,
+               gather=gather_distance.LAUNCHES,
+               gather_sq8=gather_distance.LAUNCHES_SQ8,
+               runs={f"{name}/{mode}": dict(
+                   ids=res.pool_ids.cpu().numpy(),
+                   dist=res.pool_dist.cpu().numpy(),
+                   n_fresh=int(res.n_fresh), n_computed=int(res.n_computed),
+                   hops=int(res.hops), seconds=sec, host_syncs=syncs)
+                   for (name, mode), (res, sec, syncs) in runs.items()})
+    dist.destroy_process_group()
+    with open(os.path.join(path, f"rank{rank}.pkl.part"), "wb") as f:
+        pickle.dump(out, f)
+    os.replace(os.path.join(path, f"rank{rank}.pkl.part"),
+               os.path.join(path, f"rank{rank}.pkl"))
+    return 0
+
+
+def phase_serve_mesh(counters: dict, data: dict, idx, results: dict
+                     ) -> tuple[dict, dict]:
+    """serve_sharded's index across ranks (the module docstring's 7c').
+    Returns the launches of (a), counted in this process, and the four
+    ranks' summed gather launches of (b)."""
+    import dataclasses
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import graph, search
+    from repro_torch.distributed import sharding
+    from repro_torch.serve import resilience, retrieval
+    queries = data["queries"]
+    step = N_CTX // (MESH_TOMBSTONES - 4)
+    tomb = torch.full((MESH_TOMBSTONES,), -1, dtype=torch.int32,
+                      device="cuda")
+    tomb[:MESH_TOMBSTONES - 4] = torch.arange(
+        MESH_TOMBSTONES - 4, dtype=torch.int32, device="cuda") * step
+    t0 = time.perf_counter()
+    want = dict(results)
+    want[("scatter_gather_tombstones", "sq8")] = _tomb_search(idx, queries,
+                                                              tomb)
+    tomb_one_s = time.perf_counter() - t0
+
+    # (a) one rank under NCCL on the card
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        placed = dataclasses.replace(idx, shards=graph.place_sharded(
+            idx.shards, mesh=sharding.search_mesh(SHARDS)))
+        zero_counts(counters)
+        a_rows = []
+        for name, p, _ in MESH_RUNS[:2]:
+            syncs = search.HOST_SYNCS
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, res = retrieval.retrieval_attention_batched(
+                placed, queries, routed_shards=p, quantize=MESH_MODE,
+                top_k=TOP_K, ef=SHARD_EF, block_size=BLOCK,
+                visited_impl="hash", expand_width=4)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            a_rows.append(dict(run=name, quantize=MESH_MODE, seconds=dt,
+                               qps=NQ / dt,
+                               host_syncs=search.HOST_SYNCS - syncs,
+                               identical=_identical(
+                                   res, want[(name, MESH_MODE)])))
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+    finally:
+        dist.destroy_process_group()
+
+    # (b) four gloo ranks on the same card, from one snapshot
+    path = os.path.join(HERE, "build", "serve_mesh")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    t1 = time.perf_counter()
+    resilience.save_index(idx, path)
+    np.savez(os.path.join(path, "queries.npz"),
+             queries=queries.cpu().numpy(), tomb=tomb.cpu().numpy())
+    save_s = time.perf_counter() - t1
+    port = _free_port()
+    t1 = time.perf_counter()
+    logs = [open(os.path.join(path, f"rank{r}.log"), "w")
+            for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         "--mesh-dir", path, "--mesh-port", str(port)], cwd=HERE,
+        stdout=logs[r], stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+        preexec_fn=_die_with_parent) for r in range(MESH_RANKS)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in logs:
+            f.close()
+    ranks_s = time.perf_counter() - t1
+    if any(rcs):
+        tails = []
+        for r, rc in enumerate(rcs):
+            with open(os.path.join(path, f"rank{r}.log")) as f:
+                tails.append(f"rank {r} exited {rc}:\n{f.read()[-2000:]}")
+        raise AssertionError("serve_mesh: a rank failed\n" + "\n".join(tails))
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(path, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    def same(run, ref) -> dict:
+        return dict(
+            pool_ids=bool(np.array_equal(run["ids"],
+                                         ref.pool_ids.cpu().numpy())),
+            pool_dist=bool(np.array_equal(run["dist"],
+                                          ref.pool_dist.cpu().numpy())),
+            n_fresh=run["n_fresh"] == int(ref.n_fresh),
+            n_computed=run["n_computed"] == int(ref.n_computed),
+            hops=run["hops"] == int(ref.hops))
+
+    b_rows, bad = [], []
+    for out in ranks:
+        for key, run in out["runs"].items():
+            name, mode = key.split("/")
+            one = same(run, want[(name, mode)])
+            row = dict(rank=out["rank"], run=name, quantize=mode,
+                       seconds=run["seconds"], qps=NQ / run["seconds"],
+                       host_syncs=run["host_syncs"],
+                       identical_one_process=all(one.values()))
+            if not all(one.values()):
+                bad.append((out["rank"], key, one))
+            b_rows.append(row)
+    for row in a_rows:
+        if not all(row["identical"].values()):
+            bad.append(("nccl", row["run"], row["quantize"],
+                        row["identical"]))
+    rank_launches = [dict(rank=o["rank"], shards=[o["first"], o["local"]],
+                          load_s=o["load_s"], gather_distance=o["gather"],
+                          gather_distance_sq8=o["gather_sq8"])
+                     for o in ranks]
+    emit("serve_mesh", shards=SHARDS, ranks=MESH_RANKS, top_k=TOP_K,
+         ef=SHARD_EF, nq=NQ, block_size=BLOCK, visited_impl="hash",
+         expand_width=4, tombstones=MESH_TOMBSTONES,
+         one_process_tombstone_run_s=tomb_one_s,
+         nccl_world_size_1=a_rows, nccl_launches=launches,
+         snapshot_save_s=save_s, gloo_ranks_wall_s=ranks_s,
+         gloo_rank_runs=b_rows, gloo_rank_launches=rank_launches,
+         note="the four gloo ranks are processes sharing one card: their "
+              "QPS is no scaling figure; not measured: NCCL across two "
+              "or more cards, NVLink traffic, per-card scaling")
+    if bad:
+        raise AssertionError(f"serve_mesh: runs differ from the "
+                             f"one-process search: {bad}")
+    for o in rank_launches:
+        if o["gather_distance"] <= 0 or o["gather_distance_sq8"] <= 0:
+            raise AssertionError(f"serve_mesh: rank {o['rank']} launched "
+                                 f"no gather kernel: {o}")
+    for name in ("gather_distance", "gather_distance_sq8"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"serve_mesh path (NCCL)")
+    summed = {name: 0 for name in launches}
+    for name in ("gather_distance", "gather_distance_sq8"):
+        summed[name] = sum(o[name] for o in rank_launches)
+    return launches, summed
 
 
 def _stream_dir(name: str) -> str:
@@ -4734,7 +5055,105 @@ def _matmul_params(cfg) -> int:
     return n
 
 
-def phase_lm_train_width(counters: dict) -> dict:
+class DryRun:
+    """Phase 20's counting processes (``python -m repro_torch.launch.dryrun``
+    over a fake process group, no card), started here and read by
+    ``phase_dryrun``: the two cells of DRYRUN_CELLS side by side, one
+    process each, writing under the gitignored ``build/dryrun``.  They
+    end with this script."""
+
+    def __init__(self):
+        import shutil
+        self.dir = os.path.join(HERE, "build", "dryrun")
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for name, argv in DRYRUN_CELLS.items():
+            log = open(os.path.join(self.dir, f"{name}.log"), "w")
+            self.procs.append((name, log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--results", self.dir, "--force", *argv],
+                cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+                stdin=subprocess.DEVNULL, preexec_fn=_die_with_parent,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                         PYTHONPATH=os.path.join(HERE, "src")))))
+
+    def get(self) -> dict:
+        """cell name -> (its dry-run record, the process's seconds)."""
+        import glob
+        out = {}
+        for name, log, proc in self.procs:
+            t0 = time.perf_counter()
+            rc = proc.wait()
+            log.close()
+            with open(os.path.join(self.dir, f"{name}.log")) as f:
+                text = f.read()
+            if rc != 0 or "0 errors" not in text:
+                raise AssertionError(f"dryrun {name} exited {rc}:\n"
+                                     f"{text[-3000:]}")
+            arch, shape, mesh = (DRYRUN_CELLS[name][i] for i in (1, 3, 5))
+            (path,) = glob.glob(os.path.join(
+                self.dir, f"{arch}__{shape}__{mesh}*.json"))
+            with open(path) as f:
+                out[name] = (json.load(f), time.perf_counter() - t0)
+        return out
+
+
+def phase_dryrun(dry: DryRun, train_step_s: float, smi: str) -> dict:
+    """The dry-run's two cells (see the module docstring, 20): counted
+    FLOPs beside this script's model-FLOP count (6 N_matmul tokens +
+    attention, as lm_train_width counts them) and the roofline's
+    step-time bound beside lm_train_width's measured step, with the card's
+    name and power limit."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import roofline
+    recs = dry.get()
+    full = registry.get_config(TRAIN_ARCH)
+    rows = {}
+    for name, (rec, waited) in recs.items():
+        cut = rec.get("cut") or {}
+        cfg = dataclasses.replace(full, n_layers=cut.get("n_layers",
+                                                         full.n_layers))
+        shape = SHAPES[rec["shape"]]
+        b = cut.get("global_batch", shape.global_batch)
+        pairs = _attended_pairs(shape.seq_len, shape.seq_len, True, 0, 0)
+        model = (6.0 * _matmul_params(cfg) * b * shape.seq_len
+                 + 3 * 4.0 * cfg.n_heads * pairs * cfg.head_dim
+                 * cfg.n_layers * b)
+        row = roofline.analyze_cell(rec, model_flops_total=model)
+        rows[name] = dict(
+            mesh=rec["mesh"], chips=rec["chips"], cut=cut,
+            microbatches=rec.get("microbatches"),
+            counted_flops_global=rec["hlo"]["flops_global"],
+            counted_flops_per_chip=rec["hlo"]["flops_per_chip"],
+            script_model_flops=model,
+            counted_over_model=rec["hlo"]["flops_global"] / model,
+            collective_bytes=rec["hlo"]["collective_bytes"],
+            argument_bytes=rec["memory"]["argument_bytes"],
+            peak_bytes_per_device=rec["memory"]["peak_bytes_per_device"],
+            roofline=dict((k, row[k]) for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                "step_time_bound_s", "roofline_fraction")),
+            count_s=rec["seconds"]["trace_lower"], waited_s=waited)
+    width = rows["lm_train_width"]
+    width["measured_step_s"] = train_step_s
+    width["measured_over_bound"] = (
+        train_step_s / width["roofline"]["step_time_bound_s"])
+    emit("dryrun", cells=rows, card=smi,
+         constants=dict(peak_flops=roofline.PEAK_FLOPS,
+                        hbm_bytes_per_s=roofline.HBM_BW,
+                        link_bytes_per_s=roofline.LINK_BW),
+         wall_s=time.perf_counter() - dry.t0)
+    for name, row in rows.items():
+        if not row["counted_flops_global"] > 0:
+            raise AssertionError(f"dryrun {name}: no FLOPs counted")
+    return rows
+
+
+def phase_lm_train_width(counters: dict) -> tuple[dict, float]:
     """granite_3_8b at its full widths, 8 of its 40 layers, bf16 compute
     with fp32 master weights and moments, remat: a warm-up step, then
     TRAIN_STEPS timed steps of 8 x 4096 tokens in 4 microbatches (the
@@ -4878,7 +5297,7 @@ def phase_lm_train_width(counters: dict) -> dict:
                              f"{per_step}, expected {want}")
     del state, batches, prof
     torch.cuda.empty_cache()
-    return launches
+    return launches, step_s
 
 
 def main() -> int:
@@ -4890,9 +5309,14 @@ def main() -> int:
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="only profile one grouped build of N points")
     ap.add_argument("--cpu-mirror", metavar="PATH", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.cpu_mirror:
         return cpu_mirror(args.cpu_mirror)
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank, args.mesh_dir, args.mesh_port)
 
     import torch
     if not torch.cuda.is_available():
@@ -4962,8 +5386,13 @@ def main() -> int:
     build.release()                  # the captured build steps
     phase_shard_exact(mirror)
     lap("shard_exact")
-    by_path["serve_sharded"], sharded = phase_serve_sharded(counters, data)
+    by_path["serve_sharded"], sharded, sharded_results = \
+        phase_serve_sharded(counters, data)
     lap("serve_sharded")
+    by_path["serve_mesh"], by_path["serve_mesh_ranks"] = phase_serve_mesh(
+        counters, data, sharded, sharded_results)
+    del sharded_results
+    lap("serve_mesh")
     build.release()                  # the captured build steps
     by_path["stream_exact"] = phase_stream_exact(counters)
     lap("stream_exact")
@@ -4993,8 +5422,11 @@ def main() -> int:
     by_path["train_exact"] = phase_train_exact(counters, mirror)
     by_path["train_resume"] = phase_train_resume(counters)
     lap("train_exact_resume")
-    by_path["lm_train_width"] = phase_lm_train_width(counters)
+    by_path["lm_train_width"], train_step_s = phase_lm_train_width(counters)
     lap("lm_train_width")
+    # after the measured step: beside it the host processes would slow it
+    phase_dryrun(DryRun(), train_step_s, smi)
+    lap("dryrun")
     for row in kernels:
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}

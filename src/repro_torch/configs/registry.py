@@ -1,13 +1,18 @@
-"""Architecture registry: --arch <id> resolution and the cell skip rules.
+"""Architecture registry: --arch <id> resolution, the cell skip rules and
+input specs per shape.
 
-Port of ``repro/configs/registry.py``.  ``input_specs`` (the dry-run's
-``jax.ShapeDtypeStruct`` stand-ins) is not ported: its only caller is the
-dry-run, which moves with the multi-device slice (ROADMAP queue 1,
-item 6).
+Port of ``repro/configs/registry.py``.  ``input_specs(cfg, shape)``
+returns tensors on the ``meta`` device (no storage) for every model
+input, with the reference's keys, shapes and dtypes: the dry-run
+(``launch/dryrun.py``) counts against these.  Modality frontends are
+stubs: whisper takes precomputed frame embeddings, llava precomputed
+patch embeddings.
 """
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
 
@@ -46,3 +51,30 @@ def runnable_cells() -> list[tuple[str, str]]:
             if ok:
                 cells.append((arch, sname))
     return cells
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Meta-device stand-ins for every model input of this cell."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": _sds((b, s), torch.int32)}
+        if shape.kind == "train":
+            batch["labels"] = _sds((b, s), torch.int32)
+        if cfg.is_encdec:
+            batch["enc_input"] = _sds((b, cfg.enc_seq, cfg.d_model),
+                                      torch.float32)
+        if cfg.vision_stub:
+            batch["patches"] = _sds((b, cfg.n_patches, cfg.d_model),
+                                    torch.float32)
+        return batch
+    # decode: one new token against a seq_len KV cache / recurrent state
+    batch = {"token": _sds((b, 1), torch.int32),
+             "pos": _sds((), torch.int32)}
+    if cfg.is_encdec:
+        batch["enc_memory"] = _sds((b, cfg.enc_seq, cfg.d_model),
+                                   torch.float32)
+    return batch

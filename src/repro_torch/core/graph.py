@@ -14,10 +14,15 @@ values.
 The sharded half (``ShardedGraph``, ``partition``) splits a corpus into
 ``num_shards`` disjoint node sets, each with its own vectors and a
 subgraph in shard-local ids, padded to a common row count and stacked on
-a leading shard axis.  All of a ShardedGraph's tensors live on one device:
-on one card the shards are searched one after another
+a leading shard axis.  In one process all of a ShardedGraph's tensors
+live on one device: the shards are searched one after another
 (``search.sharded_knn_search``) or, routed, as rows of one search over the
-block-diagonal ``flat_ids``.
+block-diagonal ``flat_ids``.  Placed on a ``"shard"`` mesh
+(``distributed.sharding.search_mesh``, the ranks of a
+``torch.distributed`` process group) each rank keeps only the contiguous
+block of ``S / size`` shards its mesh slot holds, and ``placement``
+records the mesh and which global shard ids those are; the centroids stay
+whole on every rank, since every rank routes every query.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 from repro_torch import as_tensor, resolve_device
 from repro_torch.core import _threefry
 from repro_torch.core import metric as metric_lib
+from repro_torch.distributed import sharding as sharding_lib
 from repro_torch.kernels import ops
 
 INVALID = -1
@@ -187,6 +193,33 @@ KMEANS_CAP_SLACK = 0.05
 _KMEANS_ASSIGN_ELEMS = 1 << 24
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardPlacement:
+    """Where a rank's shards sit on a ``"shard"`` mesh: ``num_shards`` in
+    all, this rank's the contiguous global ids ``first`` .. ``first +
+    local - 1`` (``first == num_shards`` and none on a rank outside the
+    mesh)."""
+    mesh: Any
+    num_shards: int
+    first: int
+
+
+def mesh_block(mesh, num_shards: int) -> tuple[int, int]:
+    """(first global shard id, count) of this rank's block on ``mesh``:
+    slot g of a size-m mesh holds shards g * S/m .. (g + 1) * S/m - 1, a
+    rank outside the mesh none."""
+    size = mesh.size()
+    if num_shards % size:
+        raise ValueError(f"{num_shards} shards do not split over a mesh of "
+                         f"{size} slots: use distributed.sharding."
+                         f"search_mesh({num_shards})")
+    slot = sharding_lib.mesh_rank_slot(mesh)
+    if slot is None:
+        return num_shards, 0
+    per = num_shards // size
+    return slot * per, per
+
+
 @dataclasses.dataclass
 class ShardedGraph:
     """num_shards stacked per-shard subindexes over a partitioned corpus.
@@ -207,6 +240,9 @@ class ShardedGraph:
       qcodes:     int8[S, n_s, d] SQ8 codes of the prepared rows, or None.
       qscale:     float32[S, d] one global scale, replicated per shard.
       qnorms:     float32[S, n_s] squared norms of the dequantized rows.
+      placement:  None in one process; on a mesh the ``ShardPlacement``,
+                  and every per-shard field above holds this rank's
+                  block only (its leading axis ``local_shards`` long).
     """
     ids: torch.Tensor
     data: torch.Tensor
@@ -218,10 +254,25 @@ class ShardedGraph:
     qcodes: torch.Tensor | None = None
     qscale: torch.Tensor | None = None
     qnorms: torch.Tensor | None = None
+    placement: ShardPlacement | None = dataclasses.field(default=None,
+                                                         compare=False)
 
     @property
     def num_shards(self) -> int:
+        """Shards across the whole mesh (all of them in one process)."""
+        if self.placement is not None:
+            return self.placement.num_shards
         return self.ids.shape[0]
+
+    @property
+    def local_shards(self) -> int:
+        """Shards held by this process."""
+        return self.ids.shape[0]
+
+    @property
+    def first_shard(self) -> int:
+        """Global id of this process's first shard."""
+        return 0 if self.placement is None else self.placement.first
 
     @property
     def shard_rows(self) -> int:
@@ -388,6 +439,7 @@ def _member_mean(x: torch.Tensor, part: np.ndarray) -> torch.Tensor:
 def partition(data, num_shards: int, *, assignment: str = "chunked",
               seed: int = 0, graph_ids=None, build_fn=None,
               degree: int = 16, metric: str = "l2", quantize: str = "none",
+              mesh=None,
               device: "str | torch.device" = "cuda") -> ShardedGraph:
     """Partition a corpus (and its graph) into a ``ShardedGraph`` on
     ``device``.
@@ -402,7 +454,12 @@ def partition(data, num_shards: int, *, assignment: str = "chunked",
     Entries come from ``build_fn`` when given, else the shard-local medoid
     under ``metric``.  Every assignment stores per-shard centroids for
     routing; ``quantize="sq8"`` also stores SQ8 codes
-    (``quantize_sharded``).  The graphs are built over fp32 either way."""
+    (``quantize_sharded``).  The graphs are built over fp32 either way.
+
+    ``mesh`` (a ``"shard"`` mesh, ``sharding.search_mesh``) places the
+    result: every rank of the process group calls ``partition`` with the
+    same corpus and seed, computes the same assignment (k-means alike on
+    every rank), and builds and keeps only its own block of shards."""
     if quantize not in metric_lib.QUANTIZE_MODES:
         raise ValueError(
             f"quantize {quantize!r} not in {metric_lib.QUANTIZE_MODES}")
@@ -419,8 +476,10 @@ def partition(data, num_shards: int, *, assignment: str = "chunked",
                                  seed=seed)
         prepared = metric_lib.resolve(metric).prepare(data)
         cents = torch.stack([_member_mean(prepared, part) for part in parts])
+    first, count = ((0, num_shards) if mesh is None
+                    else mesh_block(mesh, num_shards))
     all_ids, all_data, entries = [], [], []
-    for part in parts:
+    for part in parts[first:first + count]:
         c = len(part)
         local = data[torch.from_numpy(part.astype(np.int64)).to(dev)]
         if build_fn is not None:
@@ -444,10 +503,10 @@ def partition(data, num_shards: int, *, assignment: str = "chunked",
         all_ids.append(lids)
         all_data.append(local)
         entries.append(int(entry))
-    sg = assemble_sharded(all_ids, all_data, parts, entries,
-                          centroids=cents, device=dev)
+    sg = assemble_sharded(all_ids, all_data, parts[first:first + count],
+                          entries, centroids=cents, mesh=mesh, device=dev)
     if quantize == "sq8":
-        sg = quantize_sharded(sg, metric=metric)
+        sg = quantize_sharded(sg, metric=metric, mesh=mesh)
     return sg
 
 
@@ -462,56 +521,143 @@ def flat_adjacency(ids: torch.Tensor) -> torch.Tensor:
 
 
 def assemble_sharded(ids_parts, data_parts, gid_parts, entries, *,
-                     centroids=None,
+                     centroids=None, mesh=None,
                      device: "str | torch.device | None" = None
                      ) -> ShardedGraph:
     """Pad and stack per-shard ragged (c_s, Mx_s) local adjacency, (c_s, d)
     vectors and (c_s,) global ids into a ShardedGraph on ``device``
     (default: the first shard's vectors'), with its stacked-flat
     adjacency: ``partition``'s tail, and the seam streaming compaction
-    reuses to restack rebuilt and untouched shards."""
-    dev = torch.device(device) if device is not None else torch.as_tensor(
-        data_parts[0]).device
+    reuses to restack rebuilt and untouched shards.
+
+    With a ``mesh`` the parts are this rank's block of shards only (none
+    on a rank outside the mesh), ``centroids`` (S, d) are whole, and the
+    padded row count and degree are the maxima over all ranks (one
+    ``all_reduce``), so every rank stacks to the shapes one process
+    would."""
+    if device is not None:
+        dev = torch.device(device)
+    elif data_parts:
+        dev = torch.as_tensor(data_parts[0]).device
+    else:
+        dev = torch.as_tensor(centroids).device
     data_parts = [as_tensor(x, dev, torch.float32) for x in data_parts]
     ids_parts = [as_tensor(g, dev, torch.int32) for g in ids_parts]
-    n_s = max(x.shape[0] for x in data_parts)
-    mx = max(g.shape[-1] for g in ids_parts)
+    n_s = max((x.shape[0] for x in data_parts), default=0)
+    mx = max((g.shape[-1] for g in ids_parts), default=0)
+    if mesh is not None:
+        n_s, mx = sharding_lib.all_reduce_max([n_s, mx])
+    d = (data_parts[0].shape[1] if data_parts
+         else torch.as_tensor(centroids).shape[1])
     counts = [int(x.shape[0]) for x in data_parts]
     pad = torch.nn.functional.pad
     ids = torch.stack([pad(g, (0, mx - g.shape[1], 0, n_s - g.shape[0]),
-                           value=INVALID) for g in ids_parts])
+                           value=INVALID) for g in ids_parts]) \
+        if ids_parts else torch.empty((0, n_s, mx), dtype=torch.int32,
+                                      device=dev)
     dat = torch.stack([pad(x, (0, 0, 0, n_s - x.shape[0]))
-                       for x in data_parts])
+                       for x in data_parts]) \
+        if data_parts else torch.empty((0, n_s, d), device=dev)
     gids = torch.stack([pad(as_tensor(g, dev, torch.int32),
                             (0, n_s - len(g)), value=INVALID)
-                        for g in gid_parts])
+                        for g in gid_parts]) \
+        if gid_parts else torch.empty((0, n_s), dtype=torch.int32,
+                                      device=dev)
+    placement = None
+    if mesh is not None:
+        first, _ = mesh_block(mesh, len(centroids))
+        placement = ShardPlacement(mesh, len(centroids), first)
     sg = ShardedGraph(
         ids=ids, data=dat, global_ids=gids,
         entries=torch.tensor(entries, dtype=torch.int32, device=dev),
         counts=torch.tensor(counts, dtype=torch.int32, device=dev),
         centroids=(None if centroids is None
                    else as_tensor(centroids, dev, torch.float32)),
-        flat_ids=flat_adjacency(ids))
+        flat_ids=flat_adjacency(ids), placement=placement)
     return place_sharded(sg, dev)
 
 
-def place_sharded(sg: ShardedGraph, device: "str | torch.device | None" = None
-                  ) -> ShardedGraph:
+# The per-shard tensor fields of a ShardedGraph (the placement is not one).
+SHARD_FIELDS = ("ids", "data", "global_ids", "entries", "counts",
+                "centroids", "flat_ids", "qcodes", "qscale", "qnorms")
+# Fields with one row per shard: a mesh rank keeps its block of them.
+PER_SHARD_FIELDS = ("ids", "data", "global_ids", "entries", "counts",
+                    "qcodes", "qscale", "qnorms")
+
+
+def place_sharded(sg: ShardedGraph, device: "str | torch.device | None" = None,
+                  *, mesh=None) -> ShardedGraph:
     """Every tensor of ``sg`` on one ``device`` (default: where its ids
-    are), contiguous."""
+    are), contiguous.
+
+    ``mesh``: ``sg`` holds all S shards (a restored snapshot) and this
+    rank keeps its block of them on ``mesh`` (``mesh_block``), with the
+    stacked-flat adjacency of that block; the centroids stay whole.  A
+    graph already placed keeps its placement."""
     dev = torch.device(device) if device is not None else sg.ids.device
-    return dataclasses.replace(sg, **{
-        f.name: getattr(sg, f.name).to(dev).contiguous()
-        for f in dataclasses.fields(sg) if getattr(sg, f.name) is not None})
+    moved = {name: getattr(sg, name).to(dev).contiguous()
+             for name in SHARD_FIELDS if getattr(sg, name) is not None}
+    if mesh is None or sg.placement is not None:
+        return dataclasses.replace(sg, **moved)
+    first, count = mesh_block(mesh, sg.num_shards)
+    for name in PER_SHARD_FIELDS:
+        if name in moved:
+            moved[name] = moved[name][first:first + count].contiguous()
+    moved["flat_ids"] = flat_adjacency(moved["ids"])
+    return dataclasses.replace(
+        sg, **moved, placement=ShardPlacement(mesh, sg.num_shards, first))
 
 
-def quantize_sharded(sg: ShardedGraph, metric: str = "l2") -> ShardedGraph:
+def global_entry(sg: ShardedGraph) -> int:
+    """Shard 0's entry as a global id (the sharded index's ``entry``); on
+    a mesh the rank holding shard 0 tells the others."""
+    e = (int(sg.global_ids[0][int(sg.entries[0])])
+         if sg.first_shard == 0 and sg.local_shards else INVALID)
+    if sg.placement is None:
+        return e
+    return sharding_lib.all_reduce_max([e])[0]
+
+
+def gather_sharded(sg: ShardedGraph) -> ShardedGraph:
+    """A placed graph made whole on every rank (one ``all_gather`` a
+    field; every rank of the group calls it): the mesh slots' blocks
+    restacked in shard order, with their flat adjacency, unplaced."""
+    mesh = sg.placement.mesh
+    per = sg.num_shards // mesh.size()
+    slots = sharding_lib.mesh_ranks(mesh)
+    whole = {}
+    for name in PER_SHARD_FIELDS:
+        t = getattr(sg, name)
+        if t is None:
+            continue
+        if t.shape[0] < per:            # a rank outside the mesh
+            t = torch.zeros((per, *t.shape[1:]), dtype=t.dtype,
+                            device=t.device)
+        whole[name] = sharding_lib.all_gather_tensor(t)[slots].reshape(
+            sg.num_shards, *t.shape[1:])
+    return dataclasses.replace(sg, **whole, placement=None,
+                               flat_ids=flat_adjacency(whole["ids"]))
+
+
+def quantize_sharded(sg: ShardedGraph, metric: str = "l2",
+                     mesh=None) -> ShardedGraph:
     """Attach SQ8 codes: ONE global per-dimension scale over the
     metric-prepared corpus (zero padding rows never raise the abs-max),
     replicated per shard row so every shard's codes decode alike and the
-    routed search can read any row."""
+    routed search can read any row.  On a mesh (``mesh``, or the
+    graph's placement) each rank's per-dimension abs-max meets the
+    others' in an ``all_reduce(MAX)`` before any code is made, so every
+    rank's codes are the ones one process would make."""
     num_shards, n_s, d = sg.data.shape
-    q = quantize_sq8_data(sg.data.reshape(-1, d), metric)
+    flat = metric_lib.resolve(metric).prepare(sg.data.reshape(-1, d))
+    if mesh is None and sg.placement is not None:
+        mesh = sg.placement.mesh
+    amax = None
+    if mesh is not None:
+        amax = torch.amax(torch.abs(flat), dim=0) if flat.shape[0] else \
+            torch.zeros(d, dtype=torch.float32, device=flat.device)
+        amax = sharding_lib.all_reduce_tensor(amax, "max")
+    q = metric_lib.quantize_sq8(flat, amax=amax)
     return dataclasses.replace(
         sg, qcodes=q.codes.reshape(num_shards, n_s, d),
         qscale=q.scale[None, :].repeat(num_shards, 1).contiguous(),

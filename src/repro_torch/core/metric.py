@@ -36,15 +36,18 @@ class QuantizedData(NamedTuple):
     norms: torch.Tensor
 
 
-def quantize_sq8(x: torch.Tensor) -> QuantizedData:
+def quantize_sq8(x: torch.Tensor, amax: torch.Tensor | None = None
+                 ) -> QuantizedData:
     """Symmetric per-dimension int8 scalar quantization of prepared data.
 
     Queries stay fp32 and are pre-scaled by ``scale`` at search time
     (asymmetric distance computation): per-dimension scales cannot ride an
     int8 x int8 dot.  ``torch.round`` rounds half to even, as the
-    reference's ``jnp.round`` does."""
+    reference's ``jnp.round`` does.  ``amax`` (float32[d]) replaces the
+    rows' own per-dimension abs-max, e.g. by one over several ranks."""
     x = x.to(torch.float32)
-    amax = torch.amax(torch.abs(x), dim=0)
+    if amax is None:
+        amax = torch.amax(torch.abs(x), dim=0)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     deq = codes.to(torch.float32) * scale

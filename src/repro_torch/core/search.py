@@ -66,6 +66,7 @@ from repro_torch.core import hashset
 from repro_torch.core import metric as metric_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.core.graph import INVALID
+from repro_torch.distributed import sharding as sharding_lib
 from repro_torch.kernels import ops
 
 VISITED_IMPLS = ("dense", "hash")
@@ -717,6 +718,11 @@ def knn_search(graph_ids, data, queries, k: int, ef: int, entry,
 # Sharded search on one device (reference search.py:582-1202).
 # ---------------------------------------------------------------------------
 
+# Per-shard query blocks of the routed search across ranks pad up to a
+# multiple of this (graph.bucket), as the reference's (search.py:712).
+ROUTED_BLOCK_MULT = 4
+
+
 def route_topk(scores: torch.Tensor, p: int) -> torch.Tensor:
     """Top-p shard selection from centroid distances (smaller = closer).
 
@@ -734,7 +740,8 @@ def _quant_shard(sg, s: int) -> metric_lib.QuantizedData:
 
 def _scatter_gather(sg, queries, row_mask, live, *, ef, max_hops, metric,
                     visited_impl, hash_slots, expand_width, quantize):
-    """Search every shard with the full ``ef`` pool; fold the pools.
+    """Search every shard this process holds with the full ``ef`` pool;
+    fold the pools (``live``: the held shards' liveness).
 
     Each shard runs the unchanged ``beam_search`` on its local subgraph
     under the row mask ``row_mask & live[s]``: a dead shard searches no
@@ -752,7 +759,7 @@ def _scatter_gather(sg, queries, row_mask, live, *, ef, max_hops, metric,
     pool_i = pool_d = None
     n_fresh = n_comp = 0
     hops = 0
-    for s in range(sg.num_shards):
+    for s in range(sg.local_shards):
         ep = sg.entries[s].expand(b).reshape(b, 1)
         res = beam_search(
             sg.ids[s][None], _quant_shard(sg, s) if quantize else sg.data[s],
@@ -833,6 +840,147 @@ def _fused_routed(sg, queries, row_mask, live, p, *, ef, max_hops, metric,
     return pool_i, pool_d, res.n_fresh, n_comp, res.hops
 
 
+def _fold_pools(pools_i, pools_d):
+    """Left-to-right ``_merge_topk`` fold of equal-width pools."""
+    pool_i, pool_d = pools_i[0], pools_d[0]
+    for gi, gd in zip(pools_i[1:], pools_d[1:]):
+        pool_i, pool_d, _ = _merge_topk(
+            pool_i, pool_d, torch.zeros_like(pool_i, dtype=torch.bool),
+            gi.contiguous(), gd.contiguous())
+    return pool_i, pool_d
+
+
+def _reduce_counts(n_fresh, n_comp, hops, dev):
+    """Counts summed and hops maxed over the default group."""
+    counts = torch.stack([torch.as_tensor(n_fresh, device=dev),
+                          torch.as_tensor(n_comp, device=dev)]).to(
+                              torch.int64)
+    counts = sharding_lib.all_reduce_tensor(counts, "sum")
+    hops = sharding_lib.all_reduce_tensor(
+        torch.as_tensor(int(hops), dtype=torch.int64), "max")
+    return counts[0], counts[1], int(hops)
+
+
+def _mesh_scatter_gather(sg, queries, row_mask, live, *, ef, **kw):
+    """Scatter-gather across the ranks of ``sg``'s mesh.
+
+    Each rank folds its own shards in shard order (``_scatter_gather``),
+    the (b, ef) pools of all ranks meet in one ``all_gather``, and every
+    rank folds the mesh slots' pools in slot order: slots hold contiguous
+    shard blocks, so the tie order stays (shard, pool rank), a serial
+    fold's.  ``n_fresh`` / ``n_computed`` are summed and ``hops`` maxed
+    over the ranks.  A rank outside the mesh searches nothing and
+    receives the folded pool all the same."""
+    b, dev = queries.shape[0], queries.device
+    first, count = sg.first_shard, sg.local_shards
+    if count:
+        pool_i, pool_d, n_fresh, n_comp, hops = _scatter_gather(
+            sg, queries, row_mask, live[first:first + count], ef=ef, **kw)
+    else:
+        pool_i = torch.full((b, ef), INVALID, dtype=torch.int32, device=dev)
+        pool_d = torch.full((b, ef), float("inf"), device=dev)
+        n_fresh = n_comp = hops = 0
+    slots = sharding_lib.mesh_ranks(sg.placement.mesh)
+    all_i = sharding_lib.all_gather_tensor(pool_i)[slots]
+    all_d = sharding_lib.all_gather_tensor(pool_d)[slots]
+    pool_i, pool_d = _fold_pools(list(all_i), list(all_d))
+    return (pool_i, pool_d, *_reduce_counts(n_fresh, n_comp, hops, dev))
+
+
+def _route_blocks(routed: np.ndarray, rmask: np.ndarray, num_shards: int):
+    """The host-side compaction of the routed search (reference
+    search.py:1168-1189): shard s searches exactly the queries routed to
+    it, in query order, in a block padded to ``ROUTED_BLOCK_MULT``;
+    slot_of[i, j] is query i's row inside shard routed[i, j]'s block.
+    Returns (q_index, q_mask, slot_of)."""
+    b, p = routed.shape
+    per_shard: list = [[] for _ in range(num_shards)]
+    slot_of = np.zeros((b, p), np.int32)
+    for i in range(b):
+        if not rmask[i]:
+            continue                     # padding queries route nowhere
+        for j, s in enumerate(routed[i]):
+            slot_of[i, j] = len(per_shard[s])
+            per_shard[s].append(i)
+    bq = graph_lib.bucket(max(1, max(len(rows) for rows in per_shard)),
+                          ROUTED_BLOCK_MULT)
+    q_index = np.zeros((num_shards, bq), np.int64)
+    q_mask = np.zeros((num_shards, bq), bool)
+    for s, rows in enumerate(per_shard):
+        q_index[s, :len(rows)] = rows
+        q_mask[s, :len(rows)] = True
+    return q_index, q_mask, slot_of
+
+
+def _blocked_routed(sg, queries, row_mask, live, p, *, ef, max_hops, metric,
+                    visited_impl, hash_slots, expand_width, quantize):
+    """Routed search over per-shard query blocks (reference
+    ``_routed_search_fn``, search.py:730-832), across the ranks of the
+    mesh ``sg`` is placed on.
+
+    Every rank routes every query alike on the host (the whole centroid
+    table, dead shards at +inf, ``route_topk``) and compacts the routed
+    pairs into one padded query block a shard (``_route_blocks``); each
+    rank searches only its shards' blocks (padding rows masked), restores
+    global ids (after the sq8 re-rank), and the (S, bq, ef) pools of all
+    ranks meet in one ``all_gather``.  Each query then folds
+    its p pools in ascending shard order.  Counts total the routed work
+    (over the ranks); hops is the maximum."""
+    met = metric_lib.resolve(metric)
+    b, dev = queries.shape[0], queries.device
+    num_shards, first, count = sg.num_shards, sg.first_shard, \
+        sg.local_shards
+    scores = metric_lib.kernel_distance(
+        met.prepare(queries)[:, None, :], sg.centroids[None], met.kernel)
+    scores = torch.where(live[None, :], scores, float("inf")).cpu()
+    routed = route_topk(scores, p).numpy()               # (b, p) ascending
+    q_index, q_mask, slot_of = _route_blocks(
+        routed, row_mask.cpu().numpy(), num_shards)
+    bq = q_index.shape[1]
+    per = num_shards // sg.placement.mesh.size()
+    qids = torch.full((bq,), INVALID, dtype=torch.int32, device=dev)
+    efs = torch.tensor([ef], dtype=torch.int32, device=dev)
+    blocks_i = torch.full((per, bq, ef), INVALID, dtype=torch.int32,
+                          device=dev)
+    blocks_d = torch.full((per, bq, ef), float("inf"), device=dev)
+    n_fresh = n_comp = 0
+    hops = 0
+    for s in range(count):
+        g = first + s
+        qb = queries[torch.from_numpy(q_index[g]).to(dev)]
+        res = beam_search(
+            sg.ids[s][None], _quant_shard(sg, s) if quantize else sg.data[s],
+            qb, qids, torch.from_numpy(q_mask[g]).to(dev), efs,
+            sg.entries[s].expand(bq).reshape(bq, 1), ef_max=ef,
+            max_hops=max_hops, share_cache=False, metric=metric,
+            visited_impl=visited_impl, hash_slots=hash_slots,
+            expand_width=expand_width)
+        lids, dist = res.pool_ids[:, 0], res.pool_dist[:, 0]
+        n_comp = n_comp + res.n_computed
+        if quantize:
+            lids, dist, n_rr = rerank_pool(qb, met.prepare(sg.data[s]),
+                                           lids, metric=metric)
+            n_comp = n_comp + n_rr
+        blocks_i[s] = torch.where(
+            lids == INVALID, INVALID,
+            sg.global_ids[s][torch.clamp_min(lids, 0).long()])
+        blocks_d[s] = dist
+        n_fresh = n_fresh + res.n_fresh
+        hops = max(hops, res.hops)
+    slots = sharding_lib.mesh_ranks(sg.placement.mesh)
+    blocks_i = sharding_lib.all_gather_tensor(blocks_i)[slots].reshape(
+        num_shards, bq, ef)
+    blocks_d = sharding_lib.all_gather_tensor(blocks_d)[slots].reshape(
+        num_shards, bq, ef)
+    n_fresh, n_comp, hops = _reduce_counts(n_fresh, n_comp, hops, dev)
+    rt = torch.from_numpy(routed.astype(np.int64)).to(dev)
+    sl = torch.from_numpy(slot_of.astype(np.int64)).to(dev)
+    pool_i, pool_d = _fold_pools(
+        [blocks_i[rt[:, j], sl[:, j]] for j in range(p)],
+        [blocks_d[rt[:, j], sl[:, j]] for j in range(p)])
+    return pool_i, pool_d, n_fresh, n_comp, hops
+
+
 # Warn-once state of the routed_shards > live-shards clamp: the (num_shards,
 # n_live, p) state that last warned.  A degraded serving loop calls
 # sharded_knn_search every batch, so the clamp warns once per state
@@ -846,7 +994,7 @@ def sharded_knn_search(sharded_graph, queries, k: int, ef: int, *,
                        max_hops: int | None = None, row_mask=None,
                        routed_shards: int | None = None, shard_mask=None,
                        tombstone_ids=None,
-                       quantize: str = "none") -> SearchResult:
+                       quantize: str = "none", mesh=None) -> SearchResult:
     """Scatter-gather k-ANNS over a ``graph.ShardedGraph``, on its device.
 
     Each shard searches its own subgraph with the full ``ef`` pool through
@@ -858,7 +1006,8 @@ def sharded_knn_search(sharded_graph, queries, k: int, ef: int, *,
 
     ``routed_shards=p`` searches only each query's p nearest shards by
     centroid distance (``route_topk``), as the b*p rows of one search over
-    ``flat_ids``; ``p == S`` is scatter-gather itself.  ``shard_mask``
+    ``flat_ids`` (computed here for a graph without them); ``p == S`` is
+    scatter-gather itself.  ``shard_mask``
     (bool[S], True = alive) drops dead shards from routing and from the
     fold, and the counts count live shards only; an all-False mask raises,
     and ``routed_shards`` above the live count clamps with a warning (once
@@ -867,7 +1016,18 @@ def sharded_knn_search(sharded_graph, queries, k: int, ef: int, *,
     ``quantize="sq8"`` beams over the shards' int8 codes and re-ranks
     every per-shard pool against fp32 before the fold; the re-rank adds to
     ``n_computed``.  An all-True mask and an empty ``tombstone_ids`` take
-    the healthy path unchanged."""
+    the healthy path unchanged.
+
+    ``mesh`` (default: the mesh the graph was placed on, if any) splits
+    the search over the ranks of a ``"shard"`` mesh: every rank calls it
+    with the same queries and knobs and receives the same result.
+    Scatter-gather folds each rank's shards, ``all_gather``s the pools and
+    folds them in slot order; routed search routes on the host and each
+    rank searches only the query blocks routed to its shards
+    (``_blocked_routed``).  The collectives run on the process group's
+    backend.  At world size 1 routed search stays the flat-graph search.
+    A graph not yet placed is placed on ``mesh`` first (each rank keeps
+    its block); a placed graph must be searched on its own mesh."""
     if k > ef:
         raise ValueError(
             f"k={k} > ef={ef}: the search pool holds only ef candidates, so "
@@ -967,9 +1127,22 @@ def sharded_knn_search(sharded_graph, queries, k: int, ef: int, *,
               metric=metric, visited_impl=visited_impl,
               hash_slots=hash_slots, expand_width=expand_width,
               quantize=quantize == "sq8")
-    if routed_shards is None:
+    if mesh is not None and sg.placement is None:
+        sg = graph_lib.place_sharded(sg, mesh=mesh)
+    elif (mesh is not None and sg.placement is not None
+          and mesh is not sg.placement.mesh):
+        raise ValueError("this ShardedGraph is placed on another mesh: "
+                         "search it on its own (mesh=None)")
+    multi = sg.placement is not None
+    if multi and routed_shards is None:
+        pool_i, pool_d, n_fresh, n_comp, hops = _mesh_scatter_gather(
+            sg, queries, row_mask, live, **kw)
+    elif routed_shards is None:
         pool_i, pool_d, n_fresh, n_comp, hops = _scatter_gather(
             sg, queries, row_mask, live, **kw)
+    elif multi and torch.distributed.get_world_size() > 1:
+        pool_i, pool_d, n_fresh, n_comp, hops = _blocked_routed(
+            sg, queries, row_mask, live, routed_shards, **kw)
     else:
         if sg.flat_ids is None:
             sg = dataclasses.replace(

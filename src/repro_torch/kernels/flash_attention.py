@@ -218,7 +218,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
         knobs = dict(causal=causal, window=window, softcap=softcap,
                      scale=scale, q_offset=q_offset)
-        if q.device.type == "cpu":
+        if q.device.type in ("cpu", "meta"):
             out, lse = flash_attention_plain(q, k, v, **knobs), None
         else:
             out, lse = _launch(q, k, v, with_lse=True, **knobs)
@@ -229,7 +229,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
+        if q.device.type in ("cpu", "meta"):
             grads = flash_attention_backward_plain(q, k, v, do, **ctx.knobs)
         else:
             grads = flash_attention_backward(q, k, v, out, lse, do,
@@ -248,7 +248,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                     q_offset)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
                                      q_offset=q_offset)

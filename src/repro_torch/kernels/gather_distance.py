@@ -142,7 +142,7 @@ def _launch_sq8(qs, qn, codes, cn, ids, cached, mask, kernel, b, k, d):
 
 def gather_distance(u, c, cached, mask, *, kernel: str = "l2"):
     """(b, d), (b, k, d), (b, k) f32, (b, k) bool -> (b, k) float32."""
-    if u.device.type == "cpu":
+    if u.device.type in ("cpu", "meta"):
         return gather_distance_plain(u, c, cached, mask, kernel)
     if u.device.type != "cuda":
         raise ValueError(f"gather_distance: unsupported device {u.device}")
@@ -161,7 +161,7 @@ def gather_distance_ids(u, data, ids, cached, mask, *, kernel: str = "l2"):
 
     Ids must lie below n; on the card they are not range-checked (that
     would cost a host sync per call): callers pass graph ids."""
-    if u.device.type == "cpu":
+    if u.device.type in ("cpu", "meta"):
         return gather_distance_ids_plain(u, data, ids, cached, mask, kernel)
     if u.device.type != "cuda":
         raise ValueError(f"gather_distance: unsupported device {u.device}")
@@ -180,7 +180,7 @@ def gather_distance_sq8(qs, qn, codes, cn, cached, mask, *,
     """(b, d) f32 pre-scaled queries, (b,) f32 query norms, (b, k, d) int8
     codes, (b, k) f32 dequantized norms, (b, k) f32, (b, k) bool ->
     (b, k) float32."""
-    if qs.device.type == "cpu":
+    if qs.device.type in ("cpu", "meta"):
         return ref.gather_distance_adc_ref(qs, qn, codes, cn, cached, mask,
                                            kernel)
     if qs.device.type != "cuda":
@@ -202,7 +202,7 @@ def gather_distance_sq8_ids(qs, qn, codes, cn, ids, cached, mask, *,
     """Int8 ids form: codes (n, d) int8 and norms (n,) f32 of the corpus,
     ids (b, k) int32, read in-kernel; INVALID ids pass ``cached`` through.
     Ids must lie below n, as in ``gather_distance_ids``."""
-    if qs.device.type == "cpu":
+    if qs.device.type in ("cpu", "meta"):
         return gather_distance_sq8_ids_plain(qs, qn, codes, cn, ids, cached,
                                              mask, kernel)
     if qs.device.type != "cuda":

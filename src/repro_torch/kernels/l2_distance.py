@@ -93,7 +93,7 @@ def _shape2(name, t):
 def pairwise_distance(q, x, *, kernel: str = "l2"):
     """Pairwise kernel-form distances; ``kernel`` in {"l2", "ip"}."""
     global LAUNCHES
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return pairwise_distance_plain(q, x, kernel)
     if q.device.type != "cuda":
         raise ValueError(f"pairwise_distance: unsupported device {q.device}")
@@ -116,7 +116,7 @@ def pairwise_distance_sq8(qs, qn, codes, cn, *, kernel: str = "l2"):
     queries, qn (nq,) f32 query norms, codes (nx, d) int8, cn (nx,) f32
     dequantized-row norms -> (nq, nx) float32."""
     global LAUNCHES_SQ8
-    if qs.device.type == "cpu":
+    if qs.device.type in ("cpu", "meta"):
         return ref.pairwise_distance_adc_ref(qs, qn, codes, cn, kernel)
     if qs.device.type != "cuda":
         raise ValueError(f"pairwise_distance: unsupported device {qs.device}")

@@ -7,7 +7,8 @@ normalize only the queries: the codes quantize an already prepared corpus,
 and each call pre-scales its queries by the SQ scale once), and absent
 ``cached``/``mask`` mean "compute every lane".  Dispatch is by the
 tensors' device inside the kernel wrappers: a CUDA tensor launches the
-hand-written kernel, a CPU tensor takes the plain PyTorch version, and
+hand-written kernel, a CPU tensor takes the plain PyTorch version (so
+does a ``meta`` tensor, which the dry-run counts and never computes), and
 there is no third path (no switch routes CUDA tensors to the plain code).
 No padding is needed: the CUDA kernels mask their own ragged edges.
 """

@@ -79,7 +79,7 @@ def prune_recurrence(valid, may_dominate, m_limit):
     """valid bool[b, L], may_dominate bool[b, L, L], m_limit int32[b] ->
     (processed, accepted), bool[b, L]."""
     global LAUNCHES
-    if valid.device.type == "cpu":
+    if valid.device.type in ("cpu", "meta"):
         return prune_recurrence_plain(valid, may_dominate, m_limit)
     if valid.device.type != "cuda":
         raise ValueError(f"prune_recurrence: unsupported device "

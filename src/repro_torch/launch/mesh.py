@@ -1,10 +1,14 @@
 """Mesh construction.
 
-Port of ``repro/launch/mesh.py``.  A mesh here is the grid of devices and
-its axis names.  The port runs on one card: ``make_debug_mesh`` is the
-(data, model) = (1, 1) layout over it.  The production meshes (16, 16)
-and (2, 16, 16) need 256 or 512 devices and the multi-device slice
-(ROADMAP queue 1, item 6), so ``make_production_mesh`` raises.
+Port of ``repro/launch/mesh.py``.  Defined as functions: importing this
+module touches no device state.  ``make_production_mesh`` lays the
+production mesh over the default ``torch.distributed`` process group:
+single pod (16, 16) = 256 ranks, axes (data, model); multi-pod
+(2, 16, 16) = 512 ranks, axes (pod, data, model), the pod axis carrying
+data parallelism with gradient compression across the slower inter-pod
+links (train/compression.py).  The group is a real job's or the dry-run's
+fake one (``launch/dryrun.py``).  ``make_debug_mesh`` is the (data,
+model) = (1, 1) layout over one device for smoke runs.
 """
 from __future__ import annotations
 
@@ -26,12 +30,23 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production ``DeviceMesh`` over the default process group, whose
+    world size must be 256 (single pod) or 512 (multi-pod)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
-    raise NotImplementedError(
-        f"the production mesh {shape} needs {int(np.prod(shape))} devices "
-        f"and the multi-device port (ROADMAP queue 1, item 6); the port "
-        f"runs on one device: make_debug_mesh()")
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(
+            f"the production mesh {shape} needs a process group of {need} "
+            f"ranks; the default group has {world} (initialize one with "
+            f"torch.distributed.init_process_group, or use "
+            f"make_debug_mesh())")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_debug_mesh(devices=None, *,
@@ -44,6 +59,10 @@ def make_debug_mesh(devices=None, *,
 
 
 def mesh_chips(mesh) -> int:
+    """Devices in a mesh: a ``Mesh``'s, a ``DeviceMesh``'s or any mesh
+    with a name -> size ``shape``."""
+    if hasattr(mesh, "size") and callable(mesh.size):
+        return int(mesh.size())
     n = 1
     for s in mesh.shape.values():
         n *= s

@@ -8,11 +8,15 @@ tracking and restart from the newest checkpoint, on one device.
       --steps 20 --smoke [--device cpu]
 
 ``--smoke`` runs the arch's smoke config at vocab 512 in fp32 without
-remat on the 1 x 1 mesh over the card (``--device cpu`` for the CPU);
-without it the reference builds the production mesh, and so does this
-launcher, which raises there (``launch/mesh.make_production_mesh``).
-Checkpoints go to ``--ckpt-dir`` (default ``build/launch_train`` at the
-repository root).
+remat on the 1 x 1 mesh over the card (``--device cpu`` for the CPU).
+Without it the launcher builds the production mesh over the default
+process group, which must have 256 ranks (512 with ``--multi-pod``;
+``launch/mesh.make_production_mesh`` raises otherwise, naming the size it
+found), and then raises: it does not place the train state and the batch
+as DTensors over that mesh, so each rank would train the whole model on
+the whole batch.  ``launch/dryrun.py`` counts that step over a fake
+group.  Checkpoints go to ``--ckpt-dir`` (default ``build/launch_train``
+at the repository root).
 """
 from __future__ import annotations
 
@@ -53,11 +57,16 @@ def main(argv: list[str] | None = None):
     args = ap.parse_args(argv)
 
     cfg = registry.get_config(args.arch)
-    if args.smoke:
-        cfg = dataclasses.replace(cfg.smoke(), vocab=512)
-        mesh = make_debug_mesh(device=args.device)
-    else:
+    if not args.smoke:
         mesh = make_production_mesh(multi_pod=args.multi_pod)
+        raise NotImplementedError(
+            f"training on the production mesh {tuple(mesh.shape)}: this "
+            f"launcher does not place the train state and the batch as "
+            f"DTensors over it, so each rank would train the whole model "
+            f"on the whole batch; launch/dryrun.py counts this step, and "
+            f"--smoke trains on one device")
+    cfg = dataclasses.replace(cfg.smoke(), vocab=512)
+    mesh = make_debug_mesh(device=args.device)
     device = mesh.devices.flat[0]
 
     dcfg = data_lib.DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
@@ -67,8 +76,7 @@ def main(argv: list[str] | None = None):
                       total_steps=args.steps)
     scfg = train_loop.StepConfig(
         microbatches=args.microbatches,
-        compute_dtype="float32" if args.smoke else "bfloat16",
-        remat=not args.smoke,
+        compute_dtype="float32", remat=False,
         grad_compression=args.grad_compression)
     state = train_loop.init_state(cfg, opt, scfg, seed=0, device=device)
     base_step = train_loop.make_train_step(cfg, opt, scfg)

@@ -6,10 +6,11 @@ holding each weight in the reference's layout (``wq`` (d, H, dh), ``wo``
 (``core/convert.lm_params_from_numpy``).  The module's own parameters
 carry no gradient: the training path (``train/train_loop.py``) holds the
 weights as the reference's stacked leaves, which it makes require one,
-and reads them through ``models/model.layer_tree``.  The reference's
-``constrain`` sharding hints are no-ops without a mesh and are dropped
-here, with the ``*_axes`` functions (they wait for the multi-device
-slice, ROADMAP queue 1, item 6).
+and reads them through ``models/model.layer_tree``.  Each ``init_*`` has
+an ``*_axes`` sibling returning the logical-axis names the sharding
+rules read (``distributed/sharding.py``), and the reference's
+``constrain`` hints stand at the same places: without an active mesh
+they return their argument itself.
 
 Full-sequence attention goes through ``ops.flash_attention`` (the
 hand-written kernel on a CUDA tensor), self-attention with RoPE and
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 
 
@@ -45,6 +47,10 @@ def _init(generator, shape, scale=None, *, device, dtype) -> nn.Parameter:
 def init_rmsnorm(d, *, device, dtype) -> nn.ParameterDict:
     return nn.ParameterDict({"scale": nn.Parameter(
         torch.ones((d,), device=device, dtype=dtype), requires_grad=False)})
+
+
+def rmsnorm_axes():
+    return {"scale": ("embed",)}
 
 
 def rmsnorm(p, x, eps=1e-6):
@@ -83,6 +89,19 @@ def init_attention(generator, d, n_heads, n_kv, d_head, *, device,
         "wo": _init(generator, (n_heads, d_head, d),
                     scale=(1.0 / (n_heads * d_head)) ** 0.5, **kw),
     })
+
+
+def attention_axes():
+    # kv projections replicate over TP ("kv_head_dim" -> None): GQA kv-head
+    # counts (8, 4, 12) don't divide the 16-way TP axis, and letting the
+    # head_dim fallback shard them makes the attention contract over a
+    # sharded dim (reference layers.py:66-78)
+    return {
+        "wq": ("mlp_in", "heads", "head_dim"),
+        "wk": ("mlp_in", "kv_heads", "kv_head_dim"),
+        "wv": ("mlp_in", "kv_heads", "kv_head_dim"),
+        "wo": ("heads", "head_dim", "mlp_in"),
+    }
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -142,8 +161,13 @@ def attention_train(p, x, *, n_heads, n_kv, d_head, causal=True, window=0,
         q = rope(q, pos.expand(b, s), rope_theta)
         kpos = torch.arange(s, device=x.device)[None, :]
         k = rope(k, kpos.expand(b, s), rope_theta)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
     k = _repeat_kv(k, n_heads)
     v = _repeat_kv(v, n_heads)
+    # keep KV seq-complete: under context-parallel sharding (seq -> model)
+    # this is the per-layer KV all-gather; under head-TP it is a no-op
+    k = constrain(k, "batch", "kv_seq_full", "heads", "head_dim")
+    v = constrain(v, "batch", "kv_seq_full", "heads", "head_dim")
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal and memory is None, window=window, softcap=softcap,
@@ -186,6 +210,8 @@ def attention_decode(p, x1, cache_k, cache_v, pos: int, *, n_heads, n_kv,
         keys = _proj_in(memory, p["wk"])
         vals = _proj_in(memory, p["wv"])
         mask = torch.ones(keys.shape[1], dtype=torch.bool, device=x1.device)
+    keys = constrain(keys, "batch", "kv_seq", "kv_heads", "head_dim")
+    vals = constrain(vals, "batch", "kv_seq", "kv_heads", "head_dim")
     kk = _repeat_kv(keys, n_heads)
     vv = _repeat_kv(vals, n_heads)
     logits = torch.einsum("bqhk,bshk->bhqs", q.to(torch.float32),
@@ -209,12 +235,21 @@ def init_mlp(generator, d, d_ff, act="swiglu", *, device,
     return nn.ParameterDict(p)
 
 
+def mlp_axes(act="swiglu"):
+    ax = {"wi": ("mlp_in", "mlp"), "wo": ("mlp", "mlp_in")}
+    if act == "swiglu":
+        ax["wg"] = ("mlp_in", "mlp")
+    return ax
+
+
 def mlp(p, x, act="swiglu"):
     h = matmul(x, p["wi"])
     if act == "swiglu":
         h = F.silu(h) * matmul(x, p["wg"])
     else:
         h = F.gelu(h, approximate="tanh")          # jax.nn.gelu's default
+    names = ("batch", "seq", "mlp") if h.dim() == 3 else ("batch", "mlp")
+    h = constrain(h, *names)
     return matmul(h, p["wo"])
 
 
@@ -228,12 +263,19 @@ def init_embed(generator, vocab, d, tie=True, *, device,
     return nn.ParameterDict(p)
 
 
+def embed_axes(tie=True):
+    ax = {"emb": ("vocab", "embed")}
+    if not tie:
+        ax["head"] = ("embed", "vocab")
+    return ax
+
+
 def embed(p, tokens):
-    return p["emb"][tokens]
+    return constrain(p["emb"][tokens], "batch", "seq", "embed")
 
 
 def unembed(p, x, softcap=0.0):
     logits = x @ (p["head"] if "head" in p else p["emb"].T)
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
-    return logits
+    return constrain(logits, "batch", "seq", "vocab")

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import _init, einsum, matmul
 
 CONV_K = 4
@@ -91,12 +92,22 @@ def _causal_conv(xin, p):
     return F.silu(xc + p["conv_b"])
 
 
+def mamba_axes():
+    return {
+        "in_proj": ("mlp_in", "mlp"), "conv_w": ("conv", "mlp"),
+        "conv_b": ("mlp",), "x_proj": ("mlp", None), "dt_proj": (None, "mlp"),
+        "dt_bias": ("mlp",), "A_log": ("mlp", "state"), "D": ("mlp",),
+        "out_proj": ("mlp", "mlp_in"),
+    }
+
+
 def mamba_forward(p, x, *, d_state=16):
     """x: (B, S, d) -> (B, S, d).  Tail-pads S to a chunk multiple."""
     b, s, d = x.shape
     di = p["in_proj"].shape[1] // 2
     xz = matmul(x, p["in_proj"])
     xin, z = xz[..., :di], xz[..., di:]
+    xin = constrain(xin, "batch", "seq", "mlp")
     xc = _causal_conv(xin, p)
     chunk = min(CHUNK, s)
     s_pad = -(-s // chunk) * chunk

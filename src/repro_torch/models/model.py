@@ -39,8 +39,13 @@ encoder-decoder forward, ``patches`` (B, n_patches, d) embeddings that
 overwrite the first token embeddings of a vision-stub model, and in decode
 ``enc_memory``, the encoder's output for cross-attention (without it a
 decoder layer skips its cross-attention, as the reference's does: its
-``ServeEngine`` passes no extras).  The ``*_axes`` functions (logical
-sharding axes) wait for the multi-device slice (ROADMAP queue 1, item 6).
+``ServeEngine`` passes no extras).
+
+``param_axes`` and ``cache_axes`` give the logical sharding axes of the
+reference's trees (``distributed/sharding.py`` maps them onto a mesh);
+``flat_param_axes`` keys ``param_axes`` by the paths ``stacked_params``
+uses.  The reference's ``constrain`` hint at the end of each prefill
+sublayer stands here too (a no-op without an active mesh).
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -193,6 +199,92 @@ def _build(cfg: ArchConfig, generator: torch.Generator | None,
               encoder, enc_norm)
 
 
+# ---------------------------------------------------------- logical axes ----
+def _sublayer_axes(cfg: ArchConfig, kind: LayerKind) -> dict:
+    ax: dict = {"ln1": L.rmsnorm_axes()}
+    if kind.mixer == "attn":
+        ax["attn"] = L.attention_axes()
+    elif kind.mixer == "mamba":
+        ax["mamba"] = mamba_lib.mamba_axes()
+    elif kind.mixer == "mlstm":
+        ax["mlstm"] = xlstm_lib.mlstm_axes()
+    elif kind.mixer == "slstm":
+        ax["slstm"] = xlstm_lib.slstm_axes()
+    if kind.cross:
+        ax["ln_x"] = L.rmsnorm_axes()
+        ax["cross"] = L.attention_axes()
+    if kind.moe:
+        ax["ln2"] = L.rmsnorm_axes()
+        ax["moe"] = moe_lib.moe_axes(cfg.act)
+        if cfg.dense_residual:
+            ax["dense_mlp"] = L.mlp_axes(cfg.act)
+    elif kind.mlp or kind.mixer == "slstm":
+        ax["ln2"] = L.rmsnorm_axes()
+        ax["mlp"] = L.mlp_axes(cfg.act)
+    return ax
+
+
+def _stack_axes(tree):
+    if isinstance(tree, dict):
+        return {k: _stack_axes(v) for k, v in tree.items()}
+    return ("layers", *tree)
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """Logical-axis names mirroring the reference's ``init_params`` tree
+    (stacked leaves: a leading "layers")."""
+    plan = layer_plan(cfg)
+    blocks = {f"sub{j}": _sublayer_axes(cfg, plan[j])
+              for j in range(len(plan))}
+    axes = {
+        "embed": L.embed_axes(tie=cfg.tie_embeddings),
+        "blocks": _stack_axes(blocks),
+        "final_norm": L.rmsnorm_axes(),
+    }
+    if cfg.is_encdec:
+        enc = _sublayer_axes(cfg, LayerKind(mixer="attn"))
+        axes["encoder"] = _stack_axes(enc)
+        axes["enc_norm"] = L.rmsnorm_axes()
+    return axes
+
+
+def flat_param_axes(cfg: ArchConfig) -> dict[str, tuple]:
+    """``param_axes`` keyed by ``stacked_params``' paths, sorted."""
+    flat: dict[str, tuple] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[f"{prefix}{k}"] = v
+    walk(param_axes(cfg), "")
+    return dict(sorted(flat.items()))
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """Logical-axis names of the reference's decode cache (keyed by
+    ``sub{j}``, leaves stacked over period groups: a leading "layers";
+    layer g * period + j of ``init_cache`` holds row g of them)."""
+    plan = layer_plan(cfg)
+    c = {}
+    for j, kind in enumerate(plan):
+        if kind.mixer == "attn":
+            kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+            c[f"sub{j}"] = {"k": kv, "v": kv}
+        elif kind.mixer == "mamba":
+            c[f"sub{j}"] = {"h": ("layers", "batch", "mlp", "state"),
+                            "conv": ("layers", "batch", "conv", "mlp")}
+        elif kind.mixer == "mlstm":
+            c[f"sub{j}"] = {"c": ("layers", "batch", "heads", None, None),
+                            "n": ("layers", "batch", "heads", "head_dim"),
+                            "m": ("layers", "batch", "heads")}
+        else:
+            ax = ("layers", "batch", "heads", "head_dim")
+            c[f"sub{j}"] = {"c": ax, "n": ax, "m": ax, "h": ax}
+    return c
+
+
 # ------------------------------------------------------------ sublayer ------
 def _ffn(p, x, cfg: ArchConfig, kind: LayerKind):
     """The FFN half of a sublayer (MoE over the flattened tokens, with
@@ -233,7 +325,7 @@ def _apply_sublayer(p, x, cfg: ArchConfig, kind: LayerKind, *,
         x = x + L.attention_train(
             p["cross"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             d_head=cfg.head_dim, causal=False, memory=memory).to(x.dtype)
-    return _ffn(p, x, cfg, kind)
+    return constrain(_ffn(p, x, cfg, kind), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------- forward ---
@@ -466,13 +558,22 @@ def decode_step(model: LM, token, cache: list[dict], pos: int, *,
     ``extras["enc_memory"]``: the encoder's output for cross-attention.
 
     Updates ``cache`` in place and returns (logits (B, 1, V), cache)."""
-    cfg = model.cfg
+    return _decode(model.cfg, _tree(model), token, cache, pos,
+                   extras=extras), cache
+
+
+def _decode(cfg: ArchConfig, tree: dict, token, cache: list[dict], pos: int,
+            *, extras=None) -> torch.Tensor:
+    """The decode step's body over a layer tree: logits (B, 1, V)."""
+    dev = tree["embed"]["emb"].device
+    plan = layer_plan(cfg)
     memory = (extras or {}).get("enc_memory")
     if memory is not None:
-        memory = torch.as_tensor(memory, device=model.device)
-    token = torch.as_tensor(token, device=model.device).long()
-    x = L.embed(model.embed, token)
-    for i, (sp, c) in enumerate(zip(model.layers, cache)):
-        x = _decode_sublayer(sp, x, c, cfg, model.kind(i), int(pos), memory)
-    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return L.unembed(model.embed, x, cfg.logit_softcap), cache
+        memory = torch.as_tensor(memory, device=dev)
+    token = torch.as_tensor(token, device=dev).long()
+    x = L.embed(tree["embed"], token)
+    for i, (sp, c) in enumerate(zip(tree["layers"], cache)):
+        x = _decode_sublayer(sp, x, c, cfg, plan[i % cfg.period], int(pos),
+                             memory)
+    x = L.rmsnorm(tree["final_norm"], x, cfg.norm_eps)
+    return L.unembed(tree["embed"], x, cfg.logit_softcap)

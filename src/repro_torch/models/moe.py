@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import _init
 
 
@@ -52,7 +53,9 @@ def _group_ranks(sorted_ids: torch.Tensor) -> torch.Tensor:
     """Each entry's rank within its run of equal ids (ids sorted)."""
     idx = torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
     is_start = torch.ones_like(sorted_ids, dtype=torch.bool)
-    is_start[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    # the ids ascend, so "differs from its left neighbour" is ">": the
+    # comparison DTensor has a sharding rule for
+    is_start[1:] = sorted_ids[1:] > sorted_ids[:-1]
     start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
     return idx - start
 
@@ -97,6 +100,17 @@ def route(p, x, *, n_experts, top_k=2, capacity_factor=1.25) -> Routing:
     return Routing(top_idx, probs, order, slot, keep, cap)
 
 
+def moe_axes(act="swiglu"):
+    ax = {
+        "router": ("embed", None),
+        "wi": ("expert", "mlp_in", "mlp"),
+        "wo": ("expert", "mlp", "mlp_in"),
+    }
+    if act == "swiglu":
+        ax["wg"] = ("expert", "mlp_in", "mlp")
+    return ax
+
+
 def moe_ffn(p, x, *, n_experts, top_k=2, capacity_factor=1.25,
             act="swiglu") -> torch.Tensor:
     """x: (T, d) flattened tokens -> (T, d)."""
@@ -108,19 +122,22 @@ def moe_ffn(p, x, *, n_experts, top_k=2, capacity_factor=1.25,
     st = torch.div(r.order, top_k, rounding_mode="floor")   # sorted tokens
     # slot -> token table with the sentinel row E*C: every dropped
     # assignment writes there, and the row is cut off
-    slot_to_tok = torch.full((e * cap + 1,), t, dtype=torch.int64,
-                             device=x.device)
+    slot_to_tok = st.new_full((e * cap + 1,), t)     # int64, st's device
     slot_to_tok[r.slot] = st
     slot_to_tok = slot_to_tok[:e * cap]
     xin = torch.where((slot_to_tok < t)[:, None],
                       x[torch.clamp(slot_to_tok, max=t - 1)],
                       torch.zeros((), dtype=x.dtype, device=x.device))
     xin = xin.reshape(e, cap, d)
+    # the capacity dim shards over the DP axes, so per-device expert FLOPs
+    # scale with the fleet
+    xin = constrain(xin, "expert", "batch", "embed")
     h = torch.bmm(xin, p["wi"])
     if act == "swiglu":
         h = F.silu(h) * torch.bmm(xin, p["wg"])
     else:
         h = F.gelu(h, approximate="tanh")          # jax.nn.gelu's default
+    h = constrain(h, "expert", "batch", "mlp")
     y = torch.bmm(h, p["wo"]).reshape(e * cap, d)
     # combine: each assignment reads back its slot in flat token order
     # (the inverse of the dispatch sort), weighted by its gate probability
@@ -130,7 +147,7 @@ def moe_ffn(p, x, *, n_experts, top_k=2, capacity_factor=1.25,
                                       device=y.device)])
     contrib = y_pad[slot_by_flat].reshape(t, top_k, d)
     w = r.probs.to(x.dtype).reshape(t, top_k, 1)
-    return torch.sum(contrib * w, dim=1)
+    return constrain(torch.sum(contrib * w, dim=1), "batch", "embed")
 
 
 def aux_load_balance_loss(p, x, *, n_experts, top_k=2) -> torch.Tensor:

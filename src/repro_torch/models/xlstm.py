@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import _init, einsum, matmul
 
 CHUNK = 128
@@ -44,6 +45,14 @@ def init_mlstm(generator, d, n_heads, *, expand=2, device,
     })
 
 
+def mlstm_axes():
+    return {"up": ("mlp_in", "mlp"), "wq": ("mlp", "heads", "head_dim"),
+            "wk": ("mlp", "heads", "head_dim"),
+            "wv": ("mlp", "heads", "head_dim"),
+            "wi": ("mlp", "heads"), "wf": ("mlp", "heads"), "fb": ("heads",),
+            "down": ("mlp", "mlp_in")}
+
+
 def _heads(x, w):
     """einsum("...d,dhk->...hk") as one matmul."""
     return matmul(x, w.reshape(w.shape[0], -1)).reshape(
@@ -65,6 +74,7 @@ def mlstm_forward(p, x):
     di = p["down"].shape[0]
     h2 = matmul(x, p["up"])
     xi, z = h2[..., :di], h2[..., di:]
+    xi = constrain(xi, "batch", "seq", "mlp")
     q, k, v, logi, logf = _mlstm_qkv(p, xi)                 # (B,S,H[,dh])
     chunk = min(CHUNK, s)
     s_pad = -(-s // chunk) * chunk
@@ -156,6 +166,11 @@ def init_slstm(generator, d, n_heads, *, device, dtype) -> nn.ParameterDict:
         "b": _const(b, **kw),
         "down": _init(generator, (d, d), **kw),
     })
+
+
+def slstm_axes():
+    return {"w": ("mlp_in", "mlp"), "r": (None, "heads", None, "head_dim"),
+            "b": ("mlp",), "down": ("mlp_in", "mlp_in")}
 
 
 def _slstm_cell(p, pre, state):

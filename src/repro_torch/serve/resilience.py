@@ -186,15 +186,19 @@ def corrupt_shard(sg: graph_lib.ShardedGraph, shard: int, *, rows: int = 8,
     ids of the same shard (NumPy's ``default_rng(seed)``, the reference's
     draws): the graph stays legal but the damaged region loses its
     navigability.  ``flat_ids`` is recomputed, and the result lies on the
-    input's device."""
+    input's device, on the mesh it was placed on: there only the rank
+    holding ``shard`` changes anything."""
     ids = sg.ids.cpu().numpy().copy()                      # (S, n_s, Mx)
-    num_shards, _, mx = ids.shape
+    num_shards, mx = sg.num_shards, ids.shape[2]
     if not 0 <= shard < num_shards:
         raise ValueError(f"shard {shard} out of range [0, {num_shards})")
-    count = int(sg.counts[shard])
+    local = shard - sg.first_shard
+    if not 0 <= local < sg.local_shards:
+        return sg                       # another rank holds the shard
+    count = int(sg.counts[local])
     rng = np.random.default_rng(seed)
     victims = rng.choice(count, size=min(rows, count), replace=False)
-    ids[shard, victims] = rng.integers(
+    ids[local, victims] = rng.integers(
         0, count, size=(victims.size, mx)).astype(np.int32)
     dev = sg.ids.device
     new_ids = torch.from_numpy(ids).to(dev)
@@ -307,8 +311,7 @@ def search_with_retry(fn, *args, retries: int = 2, backoff_s: float = 0.05,
 # Index snapshots.
 # ---------------------------------------------------------------------------
 
-_SHARD_FIELDS = tuple(f.name for f in
-                      dataclasses.fields(graph_lib.ShardedGraph))
+_SHARD_FIELDS = graph_lib.SHARD_FIELDS
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -327,16 +330,25 @@ def save_index(idx: retrieval_lib.RetrievalIndex, snap_dir: str,
     ``<tag>.snapshot.npz`` holds every array (int32 ids, float32 vectors,
     int8 codes) and ``<tag>.snapshot.json`` the manifest (format, metric,
     entry, Vamana params, shard count, provenance, quantization, array
-    inventory), the manifest written after the archive."""
+    inventory), the manifest written after the archive.  An index placed
+    on a mesh is gathered whole first (every rank of the group calls
+    this) and written by rank 0, the others waiting for it."""
+    shards = idx.shards
+    if shards is not None and shards.placement is not None:
+        import torch.distributed as dist
+        shards = graph_lib.gather_sharded(shards)
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return _snapshot_paths(snap_dir, tag)[1]
     arrays: dict[str, np.ndarray] = {"keys": _host(idx.keys),
                                      "values": _host(idx.values)}
     if idx.graph_ids is not None:
         arrays["graph_ids"] = _host(idx.graph_ids)
     if idx.search_keys is not None:
         arrays["search_keys"] = _host(idx.search_keys)
-    if idx.shards is not None:
+    if shards is not None:
         for name in _SHARD_FIELDS:
-            t = getattr(idx.shards, name)
+            t = getattr(shards, name)
             if t is not None:
                 arrays[f"shards/{name}"] = _host(t)
     if idx.quant is not None:
@@ -363,6 +375,9 @@ def save_index(idx: retrieval_lib.RetrievalIndex, snap_dir: str,
         "arrays": sorted(arrays),
     }
     ckpt_lib.atomic_write_json(man_path, manifest)
+    if idx.shards is not None and idx.shards.placement is not None:
+        import torch.distributed as dist
+        dist.barrier()
     return man_path
 
 
@@ -374,14 +389,11 @@ def load_index(snap_dir: str, tag: str = "index", mesh=None, *,
 
     Refuses (FileNotFoundError) without the manifest, including the torn
     writer's orphaned archive, and rejects other format versions and
-    archives that lack an array the manifest lists.  ``mesh`` (placement
-    across devices) waits for the multi-device half of ROADMAP queue 1,
-    item 6."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_index(mesh=...): placing shards across devices waits for "
-            "the multi-device half of ROADMAP queue 1, item 6; the port "
-            "restores onto one device")
+    archives that lack an array the manifest lists.  ``mesh`` (a
+    ``"shard"`` mesh, ``distributed.sharding.search_mesh``) restores a
+    sharded index across the ranks of a process group: every rank reads
+    the same snapshot and keeps only its block of shards
+    (``graph.place_sharded``); keys and values stay whole."""
     dev = resolve_device(device)
     npz_path, man_path = _snapshot_paths(snap_dir, tag)
     if not os.path.exists(man_path):
@@ -408,15 +420,19 @@ def load_index(snap_dir: str, tag: str = "index", mesh=None, *,
     if "quant/codes" in arrays:
         quant = tuple(arrays[f"quant/{k}"] for k in ("codes", "scale",
                                                       "norms"))
-    return convert.retrieval_index_from_numpy(
+    shards = None
+    if manifest["sharded"]:
+        shards = {name: arrays.get(f"shards/{name}")
+                  for name in _SHARD_FIELDS}
+    idx = convert.retrieval_index_from_numpy(
         arrays.get("graph_ids"), arrays["keys"], arrays["values"],
         arrays.get("search_keys"), int(manifest["entry"]),
         vamana_lib.VamanaParams(**manifest["params"]), manifest["metric"],
         quantize=manifest.get("quantize", "none"), quant=quant,
-        shards=({name: arrays.get(f"shards/{name}")
-                 for name in _SHARD_FIELDS} if manifest["sharded"]
-                else None),
-        provenance=manifest.get("provenance"), device=dev)
+        shards=shards, provenance=manifest.get("provenance"), device=dev)
+    if mesh is not None and idx.shards is not None:
+        idx.shards = graph_lib.place_sharded(idx.shards, mesh=mesh)
+    return idx
 
 
 # ---------------------------------------------------------------------------

@@ -224,7 +224,11 @@ class MutableIndex:
         snapshot and external ids, then every complete WAL record with
         ``seq > applied_seq`` replayed in order; the WAL is truncated to its
         last complete record, so a torn tail is refused now and gone
-        before the next append."""
+        before the next append.  With ``mesh`` every rank of the group
+        restores its own shards (``resilience.load_index(mesh=)``) and
+        replays the whole log; from then on every rank makes the same
+        calls, and rank 0 alone writes the WAL and the generation files
+        (the snapshot gathered whole)."""
         ptr_path = os.path.join(wal_dir, tag + STREAM_POINTER)
         if not os.path.exists(ptr_path):
             raise FileNotFoundError(
@@ -262,8 +266,9 @@ class MutableIndex:
                 else:
                     mi._apply_delete(rec[2])
                 mi._next_seq = expect
-            with open(wal_path, "rb+") as f:
-                f.truncate(good)
+            if mi._writes():
+                with open(wal_path, "rb+") as f:
+                    f.truncate(good)
         return mi
 
     # -- properties ---------------------------------------------------------
@@ -316,7 +321,7 @@ class MutableIndex:
         if self._d_occ >= self.delta_capacity:
             self.compact()
         ext, seq = self._next_ext, self._next_seq
-        if self.wal_dir is not None:
+        if self.wal_dir is not None and self._writes():
             ckpt_lib.append_framed(self._wal_path(),
                                    _encode_insert(seq, ext, key, value))
         self._apply_insert(ext, key, value)
@@ -334,7 +339,7 @@ class MutableIndex:
                 f"external id {ext_id} is not live (never inserted, or "
                 f"already deleted)")
         seq = self._next_seq
-        if self.wal_dir is not None:
+        if self.wal_dir is not None and self._writes():
             ckpt_lib.append_framed(self._wal_path(),
                                    _encode_delete(seq, ext_id))
         self._apply_delete(ext_id)
@@ -631,9 +636,12 @@ class MutableIndex:
         """Rebuild the affected shards and restack (see ``compact``).
         Each live delta vector goes to its nearest centroid: the
         distances on the index's device, the first-index argmin on a host
-        copy."""
+        copy.  On a mesh each rank rebuilds its own shards and the result
+        keeps the mesh it found."""
         sg = main.shards
         S = sg.num_shards
+        first = sg.first_shard
+        mesh = None if sg.placement is None else sg.placement.mesh
         dev = self.device
         old2new = np.full(self.n_main, INVALID, np.int64)
         old2new[live_rows] = np.arange(live_rows.size)
@@ -649,18 +657,18 @@ class MutableIndex:
         counts_np = sg.counts.cpu().numpy()
         entries_np = sg.entries.cpu().numpy()
         ids_parts, data_parts, gid_parts, entries = [], [], [], []
-        for s in range(S):
-            c = int(counts_np[s])
-            members = gids_np[s, :c]
+        for s in range(first, first + sg.local_shards):
+            c = int(counts_np[s - first])
+            members = gids_np[s - first, :c]
             keep = live_mask[members]
             new_members = old2new[members[keep]].astype(np.int32)
             adds = np.asarray(assign[s], np.int32)
             if keep.all() and adds.size == 0:
                 # untouched: graph and vectors kept, global ids renumbered
-                ids_parts.append(sg.ids[s, :c])
-                data_parts.append(sg.data[s, :c])
+                ids_parts.append(sg.ids[s - first, :c])
+                data_parts.append(sg.data[s - first, :c])
                 gid_parts.append(new_members)
-                entries.append(int(entries_np[s]))
+                entries.append(int(entries_np[s - first]))
                 continue
             rows = np.concatenate([new_members, adds])
             if rows.size == 0:
@@ -677,13 +685,13 @@ class MutableIndex:
             entries.append(int(entry))
         shards = graph_lib.assemble_sharded(
             ids_parts, data_parts, gid_parts, entries,
-            centroids=sg.centroids, device=dev)
+            centroids=sg.centroids, mesh=mesh, device=dev)
         if main.quantize == "sq8":
             # one global scale over the compacted stack; untouched shards'
             # fp32 rows stay byte-identical, only their codes refresh
             shards = graph_lib.quantize_sharded(shards,
                                                 metric=self._met.kernel)
-        entry = int(shards.global_ids[0][int(shards.entries[0])])
+        entry = graph_lib.global_entry(shards)
         return retrieval_lib.RetrievalIndex(
             graph_ids=None, keys=new_keys, values=new_vals,
             search_keys=None, entry=entry, params=main.params,
@@ -705,6 +713,16 @@ class MutableIndex:
 
     # -- persistence --------------------------------------------------------
 
+    def _writes(self) -> bool:
+        """Whether this process writes the WAL and the generation files:
+        always in one process; on a mesh (the main index placed across
+        ranks, every rank making the same calls) rank 0 alone."""
+        sg = self.main.shards
+        if sg is None or sg.placement is None:
+            return True
+        import torch.distributed as dist
+        return dist.get_rank() == 0
+
     def _wal_path(self) -> str:
         return os.path.join(self.wal_dir,
                             f"{self.tag}-g{self.gen}{WAL_SUFFIX}")
@@ -715,6 +733,15 @@ class MutableIndex:
         (the commit record), the old generation removed after it."""
         gtag = f"{self.tag}-g{self.gen}"
         resilience_lib.save_index(self.main, self.wal_dir, tag=gtag)
+        if self._writes():
+            self._commit_generation(gtag)
+        if self.main.shards is not None and \
+                self.main.shards.placement is not None:
+            import torch.distributed as dist
+            dist.barrier()
+
+    def _commit_generation(self, gtag: str) -> None:
+        """``_persist_generation``'s files after the snapshot."""
         ckpt_lib.atomic_write_npz(
             os.path.join(self.wal_dir, gtag + STREAM_STATE),
             {"main_ext": self.main_ext})

@@ -134,9 +134,18 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
+def _is_dtensor(x) -> bool:
+    if not torch.is_tensor(x) or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _unflatten(like, flat: dict[str, np.ndarray], prefix: str = ""):
     """``like``'s structure with each leaf read from ``flat``: a tensor
-    leaf becomes a tensor of its dtype on its device."""
+    leaf becomes a tensor of its dtype on its device, a ``DTensor`` leaf
+    a DTensor of its mesh and placements (this rank's shard of the saved
+    array)."""
     if like is None:
         return None
     kids = _children(like)
@@ -145,6 +154,12 @@ def _unflatten(like, flat: dict[str, np.ndarray], prefix: str = ""):
         if key not in flat:
             raise KeyError(f"checkpoint missing {key}")
         arr = flat[key]
+        if _is_dtensor(like):
+            from torch.distributed.tensor import distribute_tensor
+            full = torch.from_numpy(np.array(arr)).to(
+                device=like.to_local().device, dtype=like.dtype)
+            return distribute_tensor(full, like.device_mesh, like.placements,
+                                     src_data_rank=None)
         if torch.is_tensor(like):
             return torch.from_numpy(np.array(arr)).to(device=like.device,
                                                        dtype=like.dtype)

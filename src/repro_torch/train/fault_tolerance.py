@@ -6,9 +6,9 @@ checkpoints every K steps, and on a failure restores the newest complete
 checkpoint and carries on; checkpoints are atomic, so a torn step is never
 restored.  The step and data are pure functions of the state and the step
 number, and no card sum uses atomics, so a resumed run ends bit for bit
-where an uninterrupted one does.  ``elastic_reshard`` is a plain restore
-here: the port runs on one device (the multi-device layouts are ROADMAP
-queue 1, item 6).
+where an uninterrupted one does.  ``elastic_reshard`` restores onto a new
+layout: each leaf goes where the template's leaf is, a ``DTensor``'s
+mesh and placements or one device.
 """
 from __future__ import annotations
 
@@ -96,6 +96,12 @@ def run_resumable(state, step_fn: Callable, batch_fn: Callable[[int], dict],
 
 def elastic_reshard(ckpt_dir: str, template_state, *,
                     step: int | None = None):
-    """Restore the latest checkpoint onto ``template_state``'s devices and
-    dtypes (one device here); returns (state, step)."""
+    """Restore the latest checkpoint onto a new mesh / sharding layout.
+
+    ``template_state`` carries the target placement per leaf: a
+    ``DTensor`` leaf (built under the new mesh) is restored as a DTensor
+    of the same mesh and placements, each rank taking its own shard of
+    the saved array (no communication), any other tensor onto its device
+    and dtype.  Returns (state, step).  The caller remaps data shards by
+    the new (shard, n_shards)."""
     return ckpt_lib.restore(ckpt_dir, template_state, step)

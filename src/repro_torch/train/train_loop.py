@@ -122,11 +122,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                    for k, v in state.params.items()}
         nmb = step_cfg.microbatches
         if nmb > 1:
-            gsum = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            # zeros_like: a DTensor leaf's accumulator keeps its placement
+            gsum = {k: torch.zeros_like(p, dtype=torch.float32)
                     for k, p in state.params.items()}
-            lsum = torch.zeros((), dtype=torch.float32,
-                               device=state.step.device)
+            lsum = torch.zeros_like(state.step, dtype=torch.float32)
             for mb in _microbatches(batch, nmb):
                 loss, g = value_and_grad(cparams, mb)
                 for k in gsum:

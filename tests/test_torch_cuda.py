@@ -306,9 +306,12 @@ def test_card_sharded_serving_equals_cpu(card, assign):
                                       build_impl="fused", batch_size=64,
                                       device=dev)
            for dev in ("cuda", "cpu")}
-    for f in dataclasses.fields(idx["cpu"].shards):
-        assert torch.equal(getattr(idx["cuda"].shards, f.name).cpu(),
-                           getattr(idx["cpu"].shards, f.name)), f.name
+    from repro_torch.core import graph
+    for name in graph.SHARD_FIELDS:         # the tensors (not the placement)
+        want = getattr(idx["cpu"].shards, name)
+        got = getattr(idx["cuda"].shards, name)
+        assert (got is None) == (want is None), name
+        assert want is None or torch.equal(got.cpu(), want), name
     dead = np.array([True, False, True, True])
     tomb = np.arange(0, 800, 11).astype(np.int32)
     for kw in (dict(), dict(routed_shards=2),

@@ -13,13 +13,17 @@ SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 PKG = SRC / "repro_torch"
 
 
-def _port_modules():
+def _modules(pkg: pathlib.Path):
     mods = []
-    for p in sorted(PKG.rglob("*.py")):
+    for p in sorted(pkg.rglob("*.py")):
         rel = p.relative_to(SRC).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         mods.append(".".join(parts))
     return mods
+
+
+def _port_modules():
+    return _modules(PKG)
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -34,6 +38,31 @@ def test_port_imports_neither_jax_nor_reference():
     proc = subprocess.run([sys.executable, "-c", code], cwd=SRC,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_reference_module_has_a_port():
+    """The two packages' module lists agree, the multi-rank sharding and
+    the dry-run side included (the HLO analysis's counterpart counts ops,
+    so it has its own name); the import check above covers them all."""
+    ref = {m.replace("repro.", "", 1) for m in _modules(SRC / "repro")}
+    port = {m.replace("repro_torch.", "", 1) for m in _port_modules()}
+    ported_as = {"launch.hlo_analysis": "launch.op_analysis"}
+    assert {ported_as.get(m, m) for m in ref if m != "repro"} <= port
+    for m in ("distributed.sharding", "launch.dryrun", "launch.op_analysis",
+              "launch.roofline"):
+        assert m in port
+        text = (PKG / (m.replace(".", "/") + ".py")).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b", text,
+                             re.M), m
+
+
+def test_the_multi_device_entry_points_do_not_wait_for_a_later_port():
+    """``mesh=`` is served everywhere the reference takes it: no message
+    or note of the port still defers it."""
+    for p in sorted(PKG.rglob("*.py")):
+        text = p.read_text()
+        assert "item 6" not in text, p
+        assert "multi-device slice" not in text, p
 
 
 def test_cuda_source_for_every_kernel_on_the_path():

@@ -327,8 +327,11 @@ def test_torn_snapshot_refused_and_overwrite_atomic(corpus, tmp_path,
     _same_search(tret.retrieval_attention_batched(again, q, **SEARCH)[1],
                  tret.retrieval_attention_batched(got, q, **SEARCH)[1],
                  "after a killed overwrite")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tres.load_index(d, tag="t", mesh=object(), device="cpu")
+    # a mesh places a sharded index's shards (tests/test_torch_mesh_search.py);
+    # an unsharded snapshot restores as it is
+    placed = tres.load_index(d, tag="t", mesh=object(), device="cpu")
+    assert placed.shards is None and placed.quantize == "sq8"
+    assert torch.equal(placed.graph_ids, again.graph_ids)
     if not torch.cuda.is_available():       # the card is the default
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tres.load_index(d, tag="t")
