@@ -57,6 +57,32 @@ DEFAULT_RULES: dict[str, object] = {
 }
 
 
+# logical names of the step inputs' dimensions (the batch's keys)
+BATCH_AXES = {
+    "tokens": ("batch", None),
+    "labels": ("batch", None),
+    "enc_input": ("batch", None, "embed"),
+    "patches": ("batch", None, "embed"),
+    "token": ("batch", None),
+    "pos": (),
+    "enc_memory": ("batch", None, "embed"),
+}
+
+
+def arch_rules(cfg, tp: int) -> dict:
+    """Per-arch sharding-rule overrides.
+
+    Architectures whose head counts don't divide the TP axis (yi/arctic/
+    llava 56H, whisper 12H) switch attention to context parallelism: shard
+    the sequence over 'model' and all-gather KV per layer, instead of
+    head_dim-TP's per-chunk logit all-reduces.
+    """
+    if cfg.n_heads % tp != 0:
+        return {"heads": None, "kv_heads": None, "head_dim": None,
+                "seq": "model"}
+    return {}
+
+
 class PartitionSpec(tuple):
     """One entry per tensor dimension: None (replicated), a mesh axis
     name, or a tuple of mesh axis names (major to minor)."""

@@ -43,6 +43,7 @@ import ctypes
 
 import torch
 
+from repro_torch.distributed import dtensor_ops
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
@@ -119,6 +120,19 @@ def _bwd_entry(dtype: torch.dtype):
     return fn
 
 
+def _refuse_dtensors(name: str, *ts) -> None:
+    """A DTensor would hand the kernel its wrapper's pointer: attention on
+    DTensors goes through ``ops.flash_attention``, which calls this
+    wrapper on each rank's local blocks."""
+    for t in ts:
+        if dtensor_ops.is_dtensor(t):
+            raise TypeError(
+                f"{name}: got a DTensor; the kernel reads local memory, so "
+                f"call kernels.ops.flash_attention, which runs this wrapper "
+                f"on each rank's local blocks (dtensor_ops.local_attention)"
+                f", or pass to_local() tensors")
+
+
 def _check(q, k, v):
     if q.dtype not in _ENTRIES:
         raise TypeError(f"flash_attention: dtype {q.dtype} (the kernel "
@@ -154,6 +168,7 @@ def _launch(q, k, v, *, causal, window, softcap, scale, q_offset,
     """The forward kernel on CUDA tensors -> (out, lse or None); lse is
     each row's base-2 log-sum-exp, (b, h, sq) fp32, when asked for."""
     global LAUNCHES
+    _refuse_dtensors("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -182,6 +197,7 @@ def flash_attention_backward(q, k, v, out, lse, do, *, causal: bool = True,
     ``out`` and ``lse`` (``_launch(..., with_lse=True)``), ``do`` the
     gradient of ``out`` -> (dq, dk, dv) in the inputs' dtype."""
     global BWD_LAUNCHES
+    _refuse_dtensors("flash_attention_backward", q, k, v, out, lse, do)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward: unsupported device "
                          f"{q.device}")
@@ -218,6 +234,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
         knobs = dict(causal=causal, window=window, softcap=softcap,
                      scale=scale, q_offset=q_offset)
+        # the dry-run counts a local block's backward as its forward
+        ctx.count = dtensor_ops.count_state()
         if q.device.type in ("cpu", "meta"):
             out, lse = flash_attention_plain(q, k, v, **knobs), None
         else:
@@ -229,11 +247,14 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type in ("cpu", "meta"):
-            grads = flash_attention_backward_plain(q, k, v, do, **ctx.knobs)
-        else:
-            grads = flash_attention_backward(q, k, v, out, lse, do,
-                                             **ctx.knobs)
+        with dtensor_ops.scaled(ctx.count[1] if ctx.count else 0,
+                                ctx.count):
+            if q.device.type in ("cpu", "meta"):
+                grads = flash_attention_backward_plain(q, k, v, do,
+                                                       **ctx.knobs)
+            else:
+                grads = flash_attention_backward(q, k, v, out, lse, do,
+                                                 **ctx.knobs)
         return (*grads, None, None, None, None, None)
 
 
@@ -243,7 +264,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """(b, h, sq, dh), (b, h, sk, dh), (b, h, sk, dh) -> (b, h, sq, dh) in
     q's dtype; scale defaults to 1/sqrt(dh).  Differentiable in q, k and
     v through ``FlashAttention`` when grad mode is on and one of them
-    requires a gradient."""
+    requires a gradient.  Refuses DTensors (``_refuse_dtensors``)."""
+    _refuse_dtensors("flash_attention", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale,

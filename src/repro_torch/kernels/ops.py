@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import metric as metric_lib
+from repro_torch.distributed import dtensor_ops
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gather_distance as _gd
 from repro_torch.kernels import l2_distance as _l2
@@ -146,7 +147,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Heads must already be GQA-repeated to match q's head count.  A CUDA
     tensor launches the flash kernel (which masks its own ragged edges, so
     nothing is padded); a CPU tensor takes the reference's own split, the
-    chunked plain form when sk > 1024, else the dense one."""
-    return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=window, softcap=softcap,
-                               scale=scale, q_offset=q_offset)
+    chunked plain form when sk > 1024, else the dense one.  DTensors
+    (sharded training, the dry-run) run the same wrapper on each rank's
+    local blocks (``dtensor_ops.local_attention``)."""
+    knobs = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                 q_offset=q_offset)
+    if dtensor_ops.is_dtensor(q):
+        return dtensor_ops.local_attention(_local_flash, q, k, v, **knobs)
+    return _local_flash(q, k, v, **knobs)
+
+
+def _local_flash(q, k, v, **knobs):
+    return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), **knobs)

@@ -23,6 +23,13 @@ and records:
     output plus argument bytes;
   * wall-clock seconds of the counted run.
 
+The step is the training path's own (``train_loop.make_train_step``,
+the batch placed pre-split into microbatches by ``place_batch``): the
+model's sites that DTensor refuses or plans badly run through
+``distributed/dtensor_ops`` on local blocks, and ``dtensor_ops.counting``
+hands them the counter, so their local compute counts over the mesh once
+a block; nothing patches ``torch`` or ``DTensor``.
+
 A cell whose step meets an op without a ``DTensor`` sharding rule (or
 any other failure) records ``status: "error"`` with the message and the
 op's name, as the reference records a cell that does not compile.
@@ -43,7 +50,6 @@ layers, train_4k's 4096 tokens, batch 8 in 4 microbatches).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -55,25 +61,17 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
+from repro_torch.distributed import dtensor_ops
 from repro_torch.distributed import sharding as shlib
 from repro_torch.launch import op_analysis
 from repro_torch.launch.mesh import make_production_mesh, mesh_chips
 from repro_torch.models import model as M
-from repro_torch.train import train_loop
+from repro_torch.train import compression, train_loop
 from repro_torch.train.optimizer import AdamWConfig, AdamWState
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
 
-BATCH_AXES = {
-    "tokens": ("batch", None),
-    "labels": ("batch", None),
-    "enc_input": ("batch", None, "embed"),
-    "patches": ("batch", None, "embed"),
-    "token": ("batch", None),
-    "pos": (),
-    "enc_memory": ("batch", None, "embed"),
-}
 
 ACT_BUDGET_BYTES = 5e9   # per-device residual budget drives microbatching
 
@@ -93,29 +91,6 @@ def pick_microbatches(cfg: ArchConfig, shape: ShapeConfig, dp: int) -> int:
     while bshard % mb:
         mb //= 2
     return max(1, mb)
-
-
-def _state_axes(cfg: ArchConfig, step_cfg) -> train_loop.TrainState:
-    pax = M.flat_param_axes(cfg)
-    ef_ax = pax if step_cfg.grad_compression != "none" else None
-    return train_loop.TrainState(
-        params=pax,
-        opt=AdamWState(step=(), mu=pax, nu=pax),
-        ef=ef_ax, step=())
-
-
-def arch_rules(cfg: ArchConfig, tp: int) -> dict:
-    """Per-arch sharding-rule overrides.
-
-    Architectures whose head counts don't divide the TP axis (yi/arctic/
-    llava 56H, whisper 12H) switch attention to context parallelism: shard
-    the sequence over 'model' and all-gather KV per layer, instead of
-    head_dim-TP's per-chunk logit all-reduces.
-    """
-    if cfg.n_heads % tp != 0:
-        return {"heads": None, "kv_heads": None, "head_dim": None,
-                "seq": "model"}
-    return {}
 
 
 # ----------------------------------------------------------- the mesh -----
@@ -176,338 +151,14 @@ def _missing_op(msg: str) -> str | None:
     return m.group(1) if m else None
 
 
-def _reshape_groups(old, new) -> list[tuple[list[int], list[int]]]:
-    """A reshape's dimension groups: runs of input and output dimensions
-    whose sizes multiply to the same number (trailing size-1 dimensions
-    left out)."""
-    groups, i, j = [], 0, 0
-    while i < len(old) and j < len(new):
-        ins, outs, pi, pj = [i], [j], old[i], new[j]
-        i, j = i + 1, j + 1
-        while pi != pj:
-            if pi < pj:
-                ins.append(i)
-                pi *= old[i]
-                i += 1
-            else:
-                outs.append(j)
-                pj *= new[j]
-                j += 1
-        groups.append((ins, outs))
-    return groups
-
-
-def _realigned(t, new_shape):
-    """``t`` (a DTensor) with every mesh dimension replicated whose shard
-    a view to ``new_shape`` would cut: a flattened group may be sharded
-    on its leading dimension only, a split dimension only in whole blocks
-    of its leading part.  DTensor refuses such views rather than move
-    data; a compiler would insert the same all-gathers, so the count
-    keeps them."""
-    from torch.distributed.tensor import Replicate
-    old = tuple(t.shape)
-    new = list(new_shape)
-    if -1 in new:
-        known = 1
-        for v in new:
-            known *= v if v != -1 else 1
-        new[new.index(-1)] = t.numel() // max(known, 1)
-    if tuple(new) == old:
-        return t
-    group_of = {}
-    for ins, outs in _reshape_groups(old, new):
-        for k in ins:
-            group_of[k] = (ins, outs)
-    splits: dict[int, int] = {}
-    for m, p in enumerate(t.placements):
-        if p.is_shard():
-            splits[p.dim] = splits.get(p.dim, 1) * t.device_mesh.shape[m]
-    want = list(t.placements)
-    for m, p in enumerate(t.placements):
-        if not p.is_shard() or p.dim not in group_of:
-            continue
-        ins, outs = group_of[p.dim]
-        ins = [k for k in ins if old[k] != 1] or ins      # size-1 dims move
-        outs = [k for k in outs if new[k] != 1] or outs   # freely
-        bad = ((len(ins) > 1 and p.dim != ins[0])
-               or (len(outs) > 1 and (len(ins) > 1
-                                      or new[outs[0]] % splits[p.dim])))
-        if bad:
-            want[m] = Replicate()
-    if want == list(t.placements):
-        return t
-    return t.redistribute(t.device_mesh, want)
-
-
-class _LocalEinsum(torch.autograd.Function):
-    """An einsum on local shards whose forward and backward count over the
-    mesh ``shards`` times (``OpCounter.scaled``); operand i's gradient is
-    the einsum of the output gradient with the other operands."""
-
-    @staticmethod
-    def forward(ctx, eq, einsum, counter, shards, *ops):
-        ctx.eq, ctx.einsum, ctx.counter, ctx.shards = eq, einsum, counter, \
-            shards
-        ctx.save_for_backward(*ops)
-        with counter.scaled(shards):
-            return einsum(eq, *ops)
-
-    @staticmethod
-    def backward(ctx, g):
-        ops = ctx.saved_tensors
-        ins, out = ctx.eq.split("->")
-        ins = ins.split(",")
-        grads = []
-        with ctx.counter.scaled(ctx.shards):
-            for i in range(len(ops)):
-                if not ctx.needs_input_grad[4 + i]:
-                    grads.append(None)
-                    continue
-                rest = [j for j in range(len(ops)) if j != i]
-                eq = ",".join([out] + [ins[j] for j in rest]) + "->" + ins[i]
-                grads.append(ctx.einsum(eq, g, *(ops[j] for j in rest)))
-        return (None, None, None, None, *grads)
-
-
-def _local_einsum(eq: str, ops, counter, einsum):
-    """``torch.einsum`` of DTensors computed on each rank's local shards.
-
-    Per mesh dimension one index of the output is kept sharded: the one
-    the largest operand is sharded on (none when it shards no output
-    index).  Every operand holding that index is sharded on it and every
-    other operand replicated, so the local einsum is a whole block of the
-    result; a redistribution brings the operands there first (an FSDP
-    weight's all-gather, say), and it counts.  DTensor itself would
-    flatten the batch indices into one, which it refuses while two of
-    them are sharded on different mesh dimensions.  None when the einsum
-    is not of this form (every index of an operand must appear in another
-    operand or the output, so each gradient is one einsum)."""
-    from torch.distributed.tensor import DTensor
-    eq = eq.replace(" ", "")
-    if ("..." in eq or "->" not in eq or not ops
-            or not all(isinstance(t, DTensor) for t in ops)):
-        return None
-    ins, out = eq.split("->")
-    ins = ins.split(",")
-    mesh = ops[0].device_mesh
-    if len(ins) != len(ops) or any(t.device_mesh != mesh for t in ops):
-        return None
-    for i, idx in enumerate(ins):
-        others = "".join(ins[j] for j in range(len(ins)) if j != i) + out
-        if any(c not in others for c in idx):
-            return None
-    sizes: dict[str, int] = {}
-    for idx, t in zip(ins, ops):
-        sizes.update(zip(idx, t.shape))
-    by_size = sorted(range(len(ops)), key=lambda i: -ops[i].numel())
-    targets = [list(t.placements) for t in ops]
-    out_placements, shards = [], 1
-    for m in range(mesh.ndim):
-        letter = None
-        for i in by_size:
-            p = ops[i].placements[m]
-            if p.is_shard() and ins[i][p.dim] in out:
-                letter = ins[i][p.dim]
-                break
-        for i, idx in enumerate(ins):
-            targets[i][m] = (_shard(idx.index(letter)) if letter in idx
-                             else _replicate()) if letter else _replicate()
-        if letter is None:
-            out_placements.append(_replicate())
-        else:
-            out_placements.append(_shard(out.index(letter)))
-            shards *= mesh.shape[m]
-    ops = [t if list(t.placements) == want else t.redistribute(mesh, want)
-           for t, want in zip(ops, targets)]
-    local = _LocalEinsum.apply(eq, einsum, counter, shards,
-                               *(t.to_local() for t in ops))
-    shape = torch.Size(sizes[c] for c in out)
-    stride = torch.empty(shape, device="meta").stride()
-    return DTensor.from_local(local, mesh, out_placements, shape=shape,
-                              stride=stride, run_check=False)
-
-
-class _Lookup(torch.autograd.Function):
-    """``table[ids]`` of a 2-D DTensor table by an integer DTensor, on the
-    local shards: the table is replicated first (its all-gather counts),
-    each rank looks up its own ids, and the output is sharded as the ids
-    are.  The table's gradient is each rank's scatter-add of its rows, a
-    partial sum over the ids' mesh dimensions, reduced to the table's
-    placements (the reduction counts).  DTensor's own index rule refuses
-    ids sharded on two mesh dimensions, and its backward (an
-    ``index_put``) fails in some PyTorch releases."""
-
-    @staticmethod
-    def forward(ctx, table, ids):
-        from torch.distributed.tensor import DTensor
-        mesh = ids.device_mesh
-        full = table.redistribute(mesh, [_replicate()] * mesh.ndim)
-        ctx.table_placements = table.placements
-        ctx.ids_placements = ids.placements
-        ctx.table_shape = table.shape
-        ctx.save_for_backward(ids)
-        local = full.to_local()[ids.to_local()]
-        shape = torch.Size((*ids.shape, table.shape[1]))
-        placements = [_shard(p.dim) if p.is_shard() else _replicate()
-                      for p in ids.placements]
-        return DTensor.from_local(local, mesh, placements, shape=shape,
-                                  stride=torch.empty(shape,
-                                                     device="meta").stride(),
-                                  run_check=False)
-
-    @staticmethod
-    def backward(ctx, g):
-        from torch.distributed.tensor import DTensor, Partial
-        (ids,) = ctx.saved_tensors
-        mesh = ids.device_mesh
-        want = [_shard(p.dim) if p.is_shard() else _replicate()
-                for p in ctx.ids_placements]
-        if list(g.placements) != want:
-            g = g.redistribute(mesh, want)
-        gl, il = g.to_local(), ids.to_local()
-        d = ctx.table_shape[1]
-        local = torch.zeros((ctx.table_shape[0], d), dtype=gl.dtype,
-                            device=gl.device).index_put_(
-            (il.reshape(-1),), gl.reshape(-1, d), accumulate=True)
-        part = DTensor.from_local(
-            local, mesh, [Partial() if p.is_shard() else _replicate()
-                          for p in ctx.ids_placements],
-            shape=ctx.table_shape, stride=(d, 1), run_check=False)
-        return part.redistribute(mesh, ctx.table_placements), None
-
-
-def _replicate():
-    from torch.distributed.tensor import Replicate
-    return Replicate()
-
-
-def _shard(dim: int):
-    from torch.distributed.tensor import Shard
-    return Shard(dim)
-
-
-class _AlignGrad(torch.autograd.Function):
-    """Identity whose backward realigns the gradient for the view back to
-    ``shape`` (the reshape it follows undoes itself on the gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, shape):
-        ctx.shape = shape
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _realigned(g, ctx.shape), None
-
-
-def _viewed(fn, self, shape, *args):
-    """``fn(self realigned for shape, *args)``, its gradient realigned for
-    the view back to ``self``'s shape."""
-    out = fn(_realigned(self, shape), *args)
-    if self.requires_grad and torch.is_grad_enabled():
-        out = _AlignGrad.apply(out, tuple(self.shape))
-    return out
-
-
-@contextlib.contextmanager
-def _aligned_views(counter):
-    """While counting: ``reshape`` / ``view`` / ``flatten`` /
-    ``unflatten`` of a DTensor first replicate the mesh dimensions whose
-    shards the view would cut (``_realigned``), and ``torch.einsum`` and
-    ``(..., k) @ (k, n)`` over DTensors run on the local shards
-    (``_local_einsum``), and a table indexed by an integer DTensor looks
-    its rows up on the local shards (``_Lookup``)."""
-    from torch.distributed.tensor import DTensor
-    saved = {n: DTensor.__dict__.get(n) for n in
-             ("reshape", "view", "flatten", "unflatten", "__matmul__",
-              "__getitem__")}
-    getitem_ = DTensor.__getitem__
-    base = torch.Tensor
-    einsum, matmul = torch.einsum, torch.matmul
-
-    def local_einsum(eq, *ops):
-        ops = ops[0] if len(ops) == 1 and isinstance(ops[0], (list, tuple)) \
-            else ops
-        out = _local_einsum(eq, list(ops), counter, einsum)
-        return einsum(eq, *ops) if out is None else out
-
-    def getitem(self, key):
-        if (isinstance(key, DTensor) and self.dim() == 2
-                and not key.dtype.is_floating_point
-                and key.dtype != torch.bool):
-            return _Lookup.apply(self, key)
-        return getitem_(self, key)
-
-    def local_matmul(a, b):
-        # (..., k) @ (k, n) as an einsum: DTensor's matmul flattens the
-        # leading dimensions, which it refuses when the second is sharded
-        if (isinstance(a, DTensor) and isinstance(b, DTensor)
-                and a.dim() >= 3 and b.dim() == 2):
-            lead = "abcdefgh"[:a.dim() - 1]
-            out = _local_einsum(f"{lead}k,kn->{lead}n", [a, b], counter,
-                                einsum)
-            if out is not None:
-                return out
-        return matmul(a, b)
-
-    def reshape(self, *shape):
-        shape = shape[0] if len(shape) == 1 and not isinstance(
-            shape[0], int) else shape
-        return _viewed(base.reshape, self, shape, shape)
-
-    def view(self, *shape):
-        if len(shape) == 1 and isinstance(shape[0], torch.dtype):
-            return base.view(self, shape[0])
-        shape = shape[0] if len(shape) == 1 and not isinstance(
-            shape[0], int) else shape
-        return _viewed(base.view, self, shape, shape)
-
-    def flatten(self, start_dim=0, end_dim=-1):
-        nd = self.dim()
-        a, b = start_dim % max(nd, 1), end_dim % max(nd, 1)
-        n = 1
-        for v in self.shape[a:b + 1]:
-            n *= v
-        shape = (*self.shape[:a], n, *self.shape[b + 1:])
-        return _viewed(base.flatten, self, shape, start_dim, end_dim)
-
-    def unflatten(self, dim, sizes):
-        d = dim % self.dim()
-        sizes = list(sizes)
-        if -1 in sizes:
-            known = 1
-            for v in sizes:
-                known *= v if v != -1 else 1
-            sizes[sizes.index(-1)] = self.shape[d] // known
-        shape = (*self.shape[:d], *sizes, *self.shape[d + 1:])
-        return _viewed(base.unflatten, self, shape, dim, sizes)
-
-    DTensor.reshape, DTensor.view = reshape, view
-    DTensor.flatten, DTensor.unflatten = flatten, unflatten
-    DTensor.__matmul__ = local_matmul
-    DTensor.__getitem__ = getitem
-    torch.einsum, torch.matmul = local_einsum, local_matmul
-    try:
-        yield
-    finally:
-        torch.einsum, torch.matmul = einsum, matmul
-        for n, fn in saved.items():
-            if fn is None:
-                delattr(DTensor, n)
-            else:
-                setattr(DTensor, n, fn)
-
-
 def _args(cfg: ArchConfig, shape: ShapeConfig, mesh, rules, mb: int,
           grad_compression: str):
     """(the step, its arguments) of one cell as meta DTensors."""
     specs = registry.input_specs(cfg, shape)
-    batch = {k: _place(v, BATCH_AXES[k], mesh, rules)
-             for k, v in specs.items()}
     shapes = M.leaf_shapes(cfg)
 
-    def params(axes=None):
-        axes = axes or M.flat_param_axes(cfg)
+    def params():
+        axes = M.flat_param_axes(cfg)
         return {k: _place(_meta(s), axes[k], mesh, rules)
                 for k, s in shapes.items()}
 
@@ -517,15 +168,21 @@ def _args(cfg: ArchConfig, shape: ShapeConfig, mesh, rules, mb: int,
             grad_compression=grad_compression)
         step = train_loop.make_train_step(cfg, AdamWConfig(), step_cfg,
                                           donate=True)
-        ax = _state_axes(cfg, step_cfg)
-        return step, (train_loop.TrainState(
-            params=params(ax.params),
-            opt=AdamWState(
-                step=_place(_meta((), torch.int32), ax.opt.step, mesh, rules),
-                mu=params(ax.opt.mu), nu=params(ax.opt.nu)),
-            ef=None if ax.ef is None else params(ax.ef),
-            step=_place(_meta((), torch.int32), ax.step, mesh, rules)),
-            batch)
+
+        def zeros():
+            return {k: _meta(s) for k, s in shapes.items()}
+        state = train_loop.TrainState(
+            params=zeros(), opt=AdamWState(step=_meta((), torch.int32),
+                                           mu=zeros(), nu=zeros()),
+            ef=(None if grad_compression == "none"
+                else compression.EFState(residual=zeros())),
+            step=_meta((), torch.int32))
+        # placed as the launcher places a real state; the batch pre-split
+        # into microbatches, each split over the data axes
+        return step, (train_loop.place_state(state, cfg, mesh, rules),
+                      train_loop.place_batch(specs, mesh, rules, mb))
+    batch = {k: _place(v, shlib.BATCH_AXES[k], mesh, rules)
+             for k, v in specs.items()}
     if shape.kind == "prefill":
         @torch.no_grad()
         def prefill(p, batch):
@@ -564,7 +221,7 @@ def _count(cfg, shape, mesh, rules, mb, grad_compression) -> dict:
     run, args = _args(cfg, shape, mesh, rules, mb, grad_compression)
     counter = op_analysis.OpCounter()
     with shlib.activate(mesh, rules), implicit_replication(), \
-            _aligned_views(counter), counter:
+            dtensor_ops.counting(counter), counter:
         out = run(*args)
     cost = counter.result()
     row = {k: float(getattr(cost, k)) for k in _COST_KEYS}
@@ -594,9 +251,9 @@ def _microbatch_runs(mb: int) -> tuple[int, ...]:
     ``mb`` itself up to 2, else 2 to 3 or 4.  One microbatch takes the
     step's other path (no accumulator: the gradients go to the optimizer
     as the backward leaves them), so a step of several is extended from
-    runs of the accumulating path; each microbatch's slice of the
-    data-sharded batch gathers the whole batch, a cost quadratic in the
-    count, which three runs fix."""
+    runs of the accumulating path, by forward differences over three runs
+    (exact for a cost up to quadratic in the count; the batch is placed
+    pre-split, ``train_loop.place_batch``, so none is known to be)."""
     return (mb,) if mb <= 2 else tuple(range(2, min(mb, 4) + 1))
 
 
@@ -667,7 +324,7 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str, *,
     chips = mesh_chips(mesh)
     dp = axis.get("data", 1) * axis.get("pod", 1)
     rules = dict(shlib.DEFAULT_RULES,
-                 **arch_rules(cfg, axis.get("model", 1)))
+                 **shlib.arch_rules(cfg, axis.get("model", 1)))
     rec: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                  "chips": chips, "status": "error"}
     if n_layers is not None or global_batch is not None or smoke:

@@ -6,8 +6,9 @@ production mesh over the default ``torch.distributed`` process group:
 single pod (16, 16) = 256 ranks, axes (data, model); multi-pod
 (2, 16, 16) = 512 ranks, axes (pod, data, model), the pod axis carrying
 data parallelism with gradient compression across the slower inter-pod
-links (train/compression.py).  The group is a real job's or the dry-run's
-fake one (``launch/dryrun.py``).  ``make_debug_mesh`` is the (data,
+links (train/compression.py).  The group is a real job's (the launcher's
+production path trains on the mesh: ``launch/train.py``) or the
+dry-run's fake one (``launch/dryrun.py``).  ``make_debug_mesh`` is the (data,
 model) = (1, 1) layout over one device for smoke runs.
 """
 from __future__ import annotations

@@ -19,12 +19,32 @@ attention is plain einsum and softmax, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import dtensor_ops as dt
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
+
+
+_draws = threading.local()
+
+
+@contextlib.contextmanager
+def draws_to(sink):
+    """Within the block, each weight ``_init`` makes goes to
+    ``sink(parameter)`` as soon as it is made, and ``_init`` returns what
+    the sink returns (``models/model.init_leaf_parts``)."""
+    prev = getattr(_draws, "sink", None)
+    _draws.sink = sink
+    try:
+        yield
+    finally:
+        _draws.sink = prev
 
 
 def _init(generator, shape, scale=None, *, device, dtype) -> nn.Parameter:
@@ -40,7 +60,9 @@ def _init(generator, shape, scale=None, *, device, dtype) -> nn.Parameter:
         t = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
         t = t.mul_(scale).to(dtype)
-    return nn.Parameter(t, requires_grad=False)
+    p = nn.Parameter(t, requires_grad=False)
+    sink = getattr(_draws, "sink", None)
+    return p if sink is None else sink(p)
 
 
 # ----------------------------------------------------------------- norms ---
@@ -108,30 +130,30 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the dtype ``jnp`` promotes the pair to (a bf16
     activation times an fp32 state gives fp32); torch's matmul takes one
     dtype."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return dt.matmul(a.to(dtype), b.to(dtype))
 
 
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum`` with its operands promoted to one dtype first."""
-    dt = ops[0].dtype
+    dtype = ops[0].dtype
     for t in ops[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return torch.einsum(eq, *(t.to(dt) for t in ops))
+        dtype = torch.promote_types(dtype, t.dtype)
+    return dt.einsum(eq, *(t.to(dtype) for t in ops))
 
 
 def _proj_in(x, w):
     """einsum("bsd,dhk->bshk") as one matmul."""
     b, s, d = x.shape
-    return matmul(x.reshape(b * s, d), w.reshape(d, -1)).reshape(
-        b, s, w.shape[1], w.shape[2])
+    return dt.reshape(matmul(dt.reshape(x, b * s, d), dt.reshape(w, d, -1)),
+                      b, s, w.shape[1], w.shape[2])
 
 
 def _proj_out(x, w):
     """einsum("bshk,hkd->bsd") as one matmul."""
     b, s, h, k = x.shape
-    return matmul(x.reshape(b * s, h * k), w.reshape(h * k, -1)).reshape(
-        b, s, -1)
+    return dt.reshape(matmul(dt.reshape(x, b * s, h * k),
+                             dt.reshape(w, h * k, -1)), b, s, -1)
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -214,13 +236,13 @@ def attention_decode(p, x1, cache_k, cache_v, pos: int, *, n_heads, n_kv,
     vals = constrain(vals, "batch", "kv_seq", "kv_heads", "head_dim")
     kk = _repeat_kv(keys, n_heads)
     vv = _repeat_kv(vals, n_heads)
-    logits = torch.einsum("bqhk,bshk->bhqs", q.to(torch.float32),
-                          kk.to(torch.float32)) / (d_head ** 0.5)
+    logits = dt.einsum("bqhk,bshk->bhqs", q.to(torch.float32),
+                       kk.to(torch.float32)) / (d_head ** 0.5)
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     logits = torch.where(mask[None, None, None, :], logits, -1e30)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqs,bshk->bqhk", w, vv.to(torch.float32))
+    out = dt.einsum("bhqs,bshk->bqhk", w, vv.to(torch.float32))
     return _proj_out(out.to(x1.dtype), p["wo"]), cache_k, cache_v
 
 
@@ -271,11 +293,11 @@ def embed_axes(tie=True):
 
 
 def embed(p, tokens):
-    return constrain(p["emb"][tokens], "batch", "seq", "embed")
+    return constrain(dt.lookup(p["emb"], tokens), "batch", "seq", "embed")
 
 
 def unembed(p, x, softcap=0.0):
-    logits = x @ (p["head"] if "head" in p else p["emb"].T)
+    logits = dt.matmul(x, p["head"] if "head" in p else p["emb"].T)
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return constrain(logits, "batch", "seq", "vocab")

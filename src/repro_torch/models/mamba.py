@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import dtensor_ops as dt
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import _init, einsum, matmul
 
@@ -83,13 +84,32 @@ def _chunk_scan(carry, abar, bx):
     return h, h[:, -1]
 
 
-def _causal_conv(xin, p):
+def _conv(xin, conv_w, conv_b):
     """The depthwise causal conv of width CONV_K as the reference's
-    4-term shifted sum, then SiLU."""
-    s = xin.shape[1]
-    pad = F.pad(xin, (0, 0, CONV_K - 1, 0))
-    xc = sum(pad[:, i:i + s] * p["conv_w"][i] for i in range(CONV_K))
-    return F.silu(xc + p["conv_b"])
+    4-term shifted sum in its order (term i reads x at t - 3 + i), then
+    SiLU: the terms are windows of the front-padded sequence
+    (``unfold``), so no slice of the padded sequence is taken."""
+    win = F.pad(xin, (0, 0, CONV_K - 1, 0)).unfold(1, CONV_K, 1)
+    xc = sum(win[..., i] * conv_w[i] for i in range(CONV_K))
+    return F.silu(xc + conv_b)
+
+
+def _causal_conv(xin, p):
+    """``_conv`` of xin (B, S, d_inner).  A DTensor runs it on each rank's
+    local block (``dtensor_ops.local_apply``): the sequence whole, the
+    batch and d_inner (the "mlp" axis) sharded as xin has them, the conv's
+    weights sharded with d_inner; DTensor's own planner fails on the
+    padded conv in some PyTorch releases."""
+    if not dt.is_dtensor(xin):
+        return _conv(xin, p["conv_w"], p["conv_b"])
+    rep, xp, wp, bp = dt.replicate(), [], [], []
+    for pl in xin.placements:
+        channel = pl.is_shard() and pl.dim == 2
+        xp.append(pl if pl.is_shard() and pl.dim in (0, 2) else rep)
+        wp.append(dt.shard(1) if channel else rep)
+        bp.append(dt.shard(0) if channel else rep)
+    return dt.local_apply(_conv, [xin, p["conv_w"], p["conv_b"]],
+                          [xp, wp, bp], xp, xin.shape)
 
 
 def mamba_axes():

@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import dtensor_ops as dt
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_lib
@@ -199,6 +200,67 @@ def _build(cfg: ArchConfig, generator: torch.Generator | None,
               encoder, enc_norm)
 
 
+def _named(mod, prefix: str = ""):
+    """(path, tensor) of a module tree's parameters, in insertion order."""
+    for name, t in mod.items():
+        if isinstance(t, torch.Tensor):
+            yield f"{prefix}{name}", t
+        else:
+            yield from _named(t, f"{prefix}{name}/")
+
+
+def init_leaf_parts(cfg: ArchConfig, generator: torch.Generator, take,
+                    device: "str | torch.device" = "cuda") -> None:
+    """``stacked_params(init_params(cfg, generator, device))`` a weight at
+    a time: ``take(path, index, tensor)`` gets each random weight as soon
+    as it is drawn, in ``init_params``' order and from the same generator
+    (so with the same values), and a layer's constants after them;
+    ``tensor`` is the whole fp32 leaf ``path`` (index None) or its slice
+    ``index`` along the stacked dimension.  No more than one drawn weight
+    is held here at once, if ``take`` keeps none."""
+    dev = resolve_device(device)
+    plan = layer_plan(cfg)
+    held = []                         # the placeholders, kept apart by id
+
+    def run(build, top: str, index: int | None) -> None:
+        order: list = []
+        with L.draws_to(lambda p: order.append(p) or p):
+            ids = {id(p): path for path, p in
+                   _named(build(None, torch.device("meta")))}
+        names = iter([ids[id(p)] for p in order])
+        placeholders: set[int] = set()
+
+        def sink(p):
+            take(f"{top}/{next(names)}", index, p.detach())
+            held.append(nn.Parameter(torch.empty(0, device=dev),
+                                     requires_grad=False))
+            placeholders.add(id(held[-1]))
+            return held[-1]
+        with L.draws_to(sink):
+            mod = build(generator, dev)
+        for path, t in _named(mod):
+            if id(t) not in placeholders:
+                take(f"{top}/{path}", index, t.detach())
+        held.clear()
+
+    kw = dict(dtype=torch.float32)
+    run(lambda g, d: L.init_embed(g, cfg.vocab, cfg.d_model,
+                                  tie=cfg.tie_embeddings, device=d, **kw),
+        "embed", None)
+    for i in range(cfg.n_groups * cfg.period):
+        j = i % cfg.period
+        run(lambda g, d: _init_sublayer(g, cfg, plan[j], device=d, **kw),
+            f"blocks/sub{j}", i // cfg.period)
+    if cfg.is_encdec:
+        for i in range(cfg.n_enc_layers):
+            run(lambda g, d: _init_sublayer(g, cfg, LayerKind(mixer="attn"),
+                                            device=d, **kw), "encoder", i)
+        run(lambda g, d: L.init_rmsnorm(cfg.d_model, device=d, **kw),
+            "enc_norm", None)
+    run(lambda g, d: L.init_rmsnorm(cfg.d_model, device=d, **kw),
+        "final_norm", None)
+
+
 # ---------------------------------------------------------- logical axes ----
 def _sublayer_axes(cfg: ArchConfig, kind: LayerKind) -> dict:
     ax: dict = {"ln1": L.rmsnorm_axes()}
@@ -291,13 +353,13 @@ def _ffn(p, x, cfg: ArchConfig, kind: LayerKind):
     arctic's dense residual; a dense FFN; or none), residual added."""
     if kind.moe:
         h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        t = h.reshape(-1, cfg.d_model)
+        t = dt.reshape(h, -1, cfg.d_model)
         y = moe_lib.moe_ffn(p["moe"], t, n_experts=cfg.n_experts,
                             top_k=cfg.experts_per_tok, act=cfg.act,
                             capacity_factor=cfg.moe_capacity_factor)
         if cfg.dense_residual:
             y = y + L.mlp(p["dense_mlp"], t, cfg.act)
-        return x + y.reshape(x.shape).to(x.dtype)
+        return x + dt.reshape(y, x.shape).to(x.dtype)
     if "mlp" in p:
         h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
         return x + L.mlp(p["mlp"], h, cfg.act).to(x.dtype)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import dtensor_ops as dt
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import _init
 
@@ -50,14 +51,17 @@ def capacity(t: int, n_experts: int, top_k: int,
 
 
 def _group_ranks(sorted_ids: torch.Tensor) -> torch.Tensor:
-    """Each entry's rank within its run of equal ids (ids sorted)."""
+    """Each entry's rank within its run of equal ids (ids sorted): its
+    index less the run's first index, which ``searchsorted`` finds.  A
+    DTensor runs on each rank's whole copy (``dtensor_ops.local_apply``):
+    DTensor has no rule for ``searchsorted`` or ``cummax`` in some
+    PyTorch releases."""
+    if dt.is_dtensor(sorted_ids):
+        rep = [dt.replicate()] * sorted_ids.device_mesh.ndim
+        return dt.local_apply(_group_ranks, [sorted_ids], [rep], rep,
+                              sorted_ids.shape)
     idx = torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
-    is_start = torch.ones_like(sorted_ids, dtype=torch.bool)
-    # the ids ascend, so "differs from its left neighbour" is ">": the
-    # comparison DTensor has a sharding rule for
-    is_start[1:] = sorted_ids[1:] > sorted_ids[:-1]
-    start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    return idx - start
+    return idx - torch.searchsorted(sorted_ids, sorted_ids)
 
 
 def top_k_lower_index(x: torch.Tensor, k: int):
@@ -91,7 +95,7 @@ def route(p, x, *, n_experts, top_k=2, capacity_factor=1.25) -> Routing:
     gates = x @ p["router"]                                 # (T, E)
     top_vals, top_idx = top_k_lower_index(gates, top_k)     # (T, k)
     probs = torch.softmax(top_vals.to(torch.float32), dim=-1)
-    flat_e = top_idx.reshape(-1)                            # (T*k,)
+    flat_e = dt.reshape(top_idx, -1)                        # (T*k,)
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
     rank = _group_ranks(se)
@@ -122,13 +126,13 @@ def moe_ffn(p, x, *, n_experts, top_k=2, capacity_factor=1.25,
     st = torch.div(r.order, top_k, rounding_mode="floor")   # sorted tokens
     # slot -> token table with the sentinel row E*C: every dropped
     # assignment writes there, and the row is cut off
-    slot_to_tok = st.new_full((e * cap + 1,), t)     # int64, st's device
-    slot_to_tok[r.slot] = st
+    slot_to_tok = dt.index_put(st.new_full((e * cap + 1,), t),  # int64
+                               (r.slot,), st)
     slot_to_tok = slot_to_tok[:e * cap]
     xin = torch.where((slot_to_tok < t)[:, None],
-                      x[torch.clamp(slot_to_tok, max=t - 1)],
+                      dt.lookup(x, torch.clamp(slot_to_tok, max=t - 1)),
                       torch.zeros((), dtype=x.dtype, device=x.device))
-    xin = xin.reshape(e, cap, d)
+    xin = dt.reshape(xin, e, cap, d)
     # the capacity dim shards over the DP axes, so per-device expert FLOPs
     # scale with the fleet
     xin = constrain(xin, "expert", "batch", "embed")
@@ -138,15 +142,15 @@ def moe_ffn(p, x, *, n_experts, top_k=2, capacity_factor=1.25,
     else:
         h = F.gelu(h, approximate="tanh")          # jax.nn.gelu's default
     h = constrain(h, "expert", "batch", "mlp")
-    y = torch.bmm(h, p["wo"]).reshape(e * cap, d)
+    y = dt.reshape(torch.bmm(h, p["wo"]), e * cap, d)
     # combine: each assignment reads back its slot in flat token order
     # (the inverse of the dispatch sort), weighted by its gate probability
-    slot_by_flat = torch.empty_like(r.slot)
-    slot_by_flat[r.order] = r.slot
+    slot_by_flat = dt.index_put(torch.empty_like(r.slot), (r.order,),
+                                r.slot)
     y_pad = torch.cat([y, torch.zeros((1, d), dtype=y.dtype,
                                       device=y.device)])
-    contrib = y_pad[slot_by_flat].reshape(t, top_k, d)
-    w = r.probs.to(x.dtype).reshape(t, top_k, 1)
+    contrib = dt.reshape(dt.lookup(y_pad, slot_by_flat), t, top_k, d)
+    w = dt.reshape(r.probs.to(x.dtype), t, top_k, 1)
     return constrain(torch.sum(contrib * w, dim=1), "batch", "embed")
 
 

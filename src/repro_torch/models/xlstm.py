@@ -16,10 +16,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import dtensor_ops as dt
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import _init, einsum, matmul
 
 CHUNK = 128
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x))`` as min(x, 0) - log1p(exp(-|x|)) (jax's form),
+    with min(x, 0) written (x - |x|) / 2 (exact, and its gradient at 0 is
+    1/2): pointwise ops only, forward and backward, where
+    ``F.logsigmoid``'s backward has no DTensor rule in some PyTorch
+    releases."""
+    a = torch.abs(x)
+    return (x - a) / 2 - torch.log1p(torch.exp(-a))
 
 
 def _const(t: torch.Tensor, *, device, dtype) -> nn.Parameter:
@@ -55,8 +66,8 @@ def mlstm_axes():
 
 def _heads(x, w):
     """einsum("...d,dhk->...hk") as one matmul."""
-    return matmul(x, w.reshape(w.shape[0], -1)).reshape(
-        *x.shape[:-1], w.shape[1], w.shape[2])
+    return dt.reshape(matmul(x, dt.reshape(w, w.shape[0], -1)),
+                      *x.shape[:-1], w.shape[1], w.shape[2])
 
 
 def _mlstm_qkv(p, xi):
@@ -64,7 +75,7 @@ def _mlstm_qkv(p, xi):
     k = _heads(xi, p["wk"]) / (q.shape[-1] ** 0.5)
     v = _heads(xi, p["wv"])
     logi = torch.clamp(matmul(xi, p["wi"]), -10.0, 10.0)    # (..., H)
-    logf = F.logsigmoid(matmul(xi, p["wf"]) + p["fb"])
+    logf = log_sigmoid(matmul(xi, p["wf"]) + p["fb"])
     return q, k, v, logi, logf
 
 
@@ -94,7 +105,7 @@ def mlstm_forward(p, x):
     for c0 in range(0, s_pad, chunk):
         qw, kw, vw, iw, fw = (t[:, c0:c0 + chunk]
                               for t in (q, k, v, logi, logf))
-        lf = torch.cumsum(fw, dim=1)                        # (B,W,H)
+        lf = dt.cumsum(fw, 1)                               # (B,W,H)
         # intra-chunk: scores[t,s] = exp(lf_t - lf_s + i_s), s <= t; the
         # upper triangle is cleared after the exp (it may overflow there)
         gap = lf[:, :, None, :] - lf[:, None, :, :] + iw[:, None, :, :]
@@ -116,7 +127,7 @@ def mlstm_forward(p, x):
                 + einsum("bshk,bsh,bshv->bhkv", kw, wk_dec, vw))
         nvec = (nvec * torch.exp(tot)[..., None]
                 + einsum("bshk,bsh->bhk", kw, wk_dec))
-    hout = torch.cat(outs, dim=1).reshape(b, s_pad, di)[:, :s]
+    hout = dt.reshape(torch.cat(outs, dim=1), b, s_pad, di)[:, :s]
     return matmul(hout * F.silu(z), p["down"])
 
 
@@ -146,7 +157,7 @@ def mlstm_decode_step(p, x1, cache):
     # becomes exp(-m) in stabilised coordinates (xLSTM eq. 15)
     den = torch.maximum(torch.abs(einsum("bhk,bhk->bh", q, n)),
                         torch.exp(-m_new))
-    hout = (num / den[..., None]).reshape(b, di)
+    hout = dt.reshape(num / den[..., None], b, di)
     y = matmul(hout * F.silu(z), p["down"])
     return y[:, None], {"c": c, "n": n, "m": m_new}
 
@@ -182,9 +193,9 @@ def _slstm_cell(p, pre, state):
     it = g[:, 1]
     ft = g[:, 2]
     ot = torch.sigmoid(g[:, 3])
-    m_new = torch.maximum(F.logsigmoid(ft) + m, it)
+    m_new = torch.maximum(log_sigmoid(ft) + m, it)
     i = torch.exp(it - m_new)
-    f = torch.exp(F.logsigmoid(ft) + m - m_new)
+    f = torch.exp(log_sigmoid(ft) + m - m_new)
     c_new = f * c + i * zt
     n_new = f * n + i
     h_new = ot * c_new / torch.clamp(n_new, min=1.0)
@@ -204,14 +215,14 @@ def slstm_forward(p, x):
     b, s, d = x.shape
     nh = p["r"].shape[1]
     dh = d // nh
-    pre = (matmul(x, p["w"]) + p["b"]).reshape(b, s, 4, nh, dh)
+    pre = dt.reshape(matmul(x, p["w"]) + p["b"], b, s, 4, nh, dh)
     st = _zero_state(p, b)
     state = (st["c"], st["n"], st["m"], st["h"])
     hs = []
     for t in range(s):
         state = _slstm_cell(p, pre[:, t], state)
         hs.append(state[3])
-    h = torch.stack(hs, dim=1).reshape(b, s, d)
+    h = dt.reshape(torch.stack(hs, dim=1), b, s, d)
     return matmul(h, p["down"])
 
 
@@ -223,8 +234,8 @@ def slstm_decode_step(p, x1, cache):
     b, _, d = x1.shape
     nh = p["r"].shape[1]
     dh = d // nh
-    pre = (matmul(x1[:, 0], p["w"]) + p["b"]).reshape(b, 4, nh, dh)
+    pre = dt.reshape(matmul(x1[:, 0], p["w"]) + p["b"], b, 4, nh, dh)
     c, n, m, h = _slstm_cell(p, pre, (cache["c"], cache["n"], cache["m"],
                                       cache["h"]))
-    y = matmul(h.reshape(b, d), p["down"])
+    y = matmul(dt.reshape(h, b, d), p["down"])
     return y[:, None], {"c": c, "n": n, "m": m, "h": h}

@@ -7,12 +7,16 @@ those of the stacked leaf, as in the reference, not of one layer's slice.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.  The top-k
 threshold is the k-th largest magnitude (a descending sort sliced); every
 entry at or above it is kept, ties included, as the reference's mask does.
+On sharded DTensor leaves the int8 scale's maximum and top-k's threshold
+are reductions over the whole leaf, across the mesh (DTensor's own).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.distributed import dtensor_ops as dt
 
 
 class EFState(NamedTuple):
@@ -53,7 +57,7 @@ def decompress_int8(qs: dict) -> dict:
 def topk_sparsify(x: torch.Tensor, frac: float) -> torch.Tensor:
     """Keep the top ``frac`` fraction by magnitude (dense mask form)."""
     k = max(1, int(x.numel() * frac))
-    flat = torch.abs(x.reshape(-1))
+    flat = torch.abs(dt.reshape(x, -1))
     thresh = torch.sort(flat, descending=True).values[k - 1]
     return torch.where(torch.abs(x) >= thresh, x, 0.0)
 

@@ -4,11 +4,18 @@ supervisor loop and restore onto a new layout.
 Port of ``repro/train/fault_tolerance.py``.  ``run_resumable`` steps,
 checkpoints every K steps, and on a failure restores the newest complete
 checkpoint and carries on; checkpoints are atomic, so a torn step is never
-restored.  The step and data are pure functions of the state and the step
-number, and no card sum uses atomics, so a resumed run ends bit for bit
-where an uninterrupted one does.  ``elastic_reshard`` restores onto a new
-layout: each leaf goes where the template's leaf is, a ``DTensor``'s
-mesh and placements or one device.
+restored.  The step and data are pure functions of the state and the
+step number, and no card sum uses atomics, so a resumed run ends bit for
+bit where an uninterrupted one does.  A state placed on a mesh runs the
+same loop on every rank (``checkpoint.save`` gathers it and rank 0
+writes; ``restore`` places it again).  There the ranks agree on each
+step's failures before its collectives begin: a failure while the step
+is set up (the injector, the batch) on any rank makes every rank
+restore; a failure inside the step or its checkpoint is raised, since
+the other ranks may be waiting in that step's collectives and no rank
+could start the next one in step with them.  ``elastic_reshard``
+restores onto a new layout: each leaf goes where the template's leaf
+is, a ``DTensor``'s mesh and placements or one device.
 """
 from __future__ import annotations
 
@@ -58,6 +65,12 @@ class StragglerMitigator:
         return self.tolerance * float(np.median(self.history))
 
 
+def _value(x):
+    """A step counter's value (a placed state's is a replicated
+    DTensor)."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
 def run_resumable(state, step_fn: Callable, batch_fn: Callable[[int], dict],
                   *, n_steps: int, ckpt_dir: str, ckpt_every: int = 50,
                   fail_injector: Callable[[int], bool] | None = None,
@@ -66,9 +79,12 @@ def run_resumable(state, step_fn: Callable, batch_fn: Callable[[int], dict],
     """Supervisor loop: step, checkpoint, restore on failure.
 
     ``fail_injector(step) -> bool`` simulates a node failure (tests);
-    a real failure reaches the same path as an exception.  Returns
-    (final_state, steps_run, n_restarts)."""
-    start = int(state.step)
+    a real failure reaches the same path as an exception.  On a placed
+    state the ranks agree on a failure before the step (one all-reduce a
+    step) and a failure inside it is raised (the module docstring).
+    Returns (final_state, steps_run, n_restarts)."""
+    start = int(_value(state.step))
+    placed = ckpt_lib.is_placed(state)
     restarts = 0
     step = start
     while step < n_steps:
@@ -76,22 +92,45 @@ def run_resumable(state, step_fn: Callable, batch_fn: Callable[[int], dict],
             if fail_injector is not None and fail_injector(step):
                 raise RuntimeError(f"injected failure at step {step}")
             batch = batch_fn(step)
-            state, metrics = step_fn(state, batch)
-            step += 1
-            if on_metrics is not None:
-                on_metrics(step, metrics)
-            if step % ckpt_every == 0 or step == n_steps:
-                ckpt_lib.save(ckpt_dir, step, state)
-        except Exception:
-            restarts += 1
-            if restarts > max_restarts:
-                raise
-            last = ckpt_lib.latest_step(ckpt_dir)
-            if last is None:
-                step = start          # nothing saved yet: restart from init
+            failed = None
+        except Exception as e:              # noqa: BLE001
+            failed = e
+        if placed:
+            failed = _any_rank(failed)
+        if failed is None:
+            try:
+                state, metrics = step_fn(state, batch)
+                step += 1
+                if on_metrics is not None:
+                    on_metrics(step, metrics)
+                if step % ckpt_every == 0 or step == n_steps:
+                    ckpt_lib.save(ckpt_dir, step, state)
                 continue
-            state, step = ckpt_lib.restore(ckpt_dir, state, last)
+            except Exception as e:          # noqa: BLE001
+                if placed:
+                    raise
+                failed = e
+        restarts += 1
+        if restarts > max_restarts:
+            raise failed
+        last = ckpt_lib.latest_step(ckpt_dir)
+        if last is None:
+            step = start              # nothing saved yet: restart from init
+            continue
+        state, step = ckpt_lib.restore(ckpt_dir, state, last)
     return state, step, restarts
+
+
+def _any_rank(failed: Exception | None) -> Exception | None:
+    """This rank's failure, or one standing for another rank's, when any
+    rank of the default group failed (one all-reduce); None when none
+    did."""
+    import torch
+    from repro_torch.distributed import sharding
+    flag = torch.tensor([int(failed is not None)], dtype=torch.int32)
+    if int(sharding.all_reduce_tensor(flag, "max")[0]) == 0:
+        return None
+    return failed or RuntimeError("another rank failed this step")
 
 
 def elastic_reshard(ckpt_dir: str, template_state, *,

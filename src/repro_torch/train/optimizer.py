@@ -56,11 +56,15 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in fp32, leaf by leaf
-    in the dict's order."""
+    in the dict's order.  Over sharded DTensor leaves each leaf's sum is a
+    partial sum over the mesh dimensions that split it, and DTensor
+    reduces the total over the whole mesh before the square root."""
     total = 0
     for x in tree.values():
         total = total + torch.sum(torch.square(x.to(torch.float32)))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    if not torch.is_tensor(total):
+        total = torch.as_tensor(total, dtype=torch.float32)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(tree: dict, max_norm: float) -> tuple[dict,

@@ -25,7 +25,9 @@ from repro.launch import hlo_analysis, roofline as jroof
 from repro.models import model as jmodel
 from repro.train import train_loop as jtrain
 from repro_torch.configs import registry as treg
+from repro_torch.distributed import sharding as tsh
 from repro_torch.launch import roofline as troof
+from repro_torch.models import model as tmodel
 from _torch_threads import _one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,6 +99,13 @@ def test_analyze_cell_terms_on_the_h100():
 
 
 def test_production_mesh_needs_its_process_group():
+    """Outside a group the production mesh raises, naming the size; over
+    fake 256- and 512-rank groups the launcher's production path builds
+    the mesh and places the train state by the rules, each rank holding
+    the per-device bytes of ``test_torch_sharding.py``'s sums (fp32
+    parameters and both moments, two int32 step counters); placed on
+    ``meta``, as a full-size state does not fit on a host.  An 8-rank
+    group raises the mesh-size error."""
     from repro_torch.launch import mesh, train
     with pytest.raises(ValueError, match="256 ranks; the default group "
                                          "has 1"):
@@ -104,33 +113,67 @@ def test_production_mesh_needs_its_process_group():
     with pytest.raises(ValueError, match="512 ranks"):
         train.main(["--arch", "granite_3_8b", "--multi-pod", "--steps", "1"])
     code = (
-        "import torch.distributed as dist\n"
+        "import torch, torch.distributed as dist\n"
         "from torch.testing._internal.distributed.fake_pg import FakeStore\n"
         "from repro_torch.launch import mesh, train\n"
+        "from repro_torch.models import model as M\n"
+        "from repro_torch.train import train_loop\n"
+        "from repro_torch.train.optimizer import AdamWState\n"
+        "def meta(shape, dtype=torch.float32):\n"
+        "    return torch.empty(shape, dtype=dtype, device='meta')\n"
         "for world, multi in ((256, False), (512, True), (8, False)):\n"
         "    dist.init_process_group('fake', store=FakeStore(), rank=0,\n"
         "                            world_size=world)\n"
+        "    argv = ['--arch', 'granite_3_8b'] + ['--multi-pod'] * multi\n"
         "    try:\n"
-        "        m = mesh.make_production_mesh(multi_pod=multi)\n"
+        "        cfg, m, rules, scfg = train.production_setup(\n"
+        "            train._parser().parse_args(argv))\n"
+        "        shapes = M.leaf_shapes(cfg)\n"
+        "        p = lambda: {k: meta(s) for k, s in shapes.items()}\n"
+        "        i32 = meta((), torch.int32)\n"
+        "        state = train_loop.TrainState(\n"
+        "            params=p(), opt=AdamWState(step=i32, mu=p(), nu=p()),\n"
+        "            ef=None, step=meta((), torch.int32))\n"
+        "        placed = train_loop.place_state(state, cfg, m, rules)\n"
+        "        local = sum(t.to_local().numel() * t.element_size()\n"
+        "                    for t in (*placed.params.values(),\n"
+        "                              *placed.opt.mu.values(),\n"
+        "                              *placed.opt.nu.values(),\n"
+        "                              placed.opt.step, placed.step))\n"
         "        print(world, tuple(m.mesh_dim_names), tuple(m.shape),\n"
-        "              mesh.mesh_chips(m))\n"
-        "        train.main(['--steps', '1'] + ['--multi-pod'] * multi)\n"
-        "    except (ValueError, NotImplementedError) as e:\n"
+        "              mesh.mesh_chips(m), scfg.compute_dtype, scfg.remat,\n"
+        "              local)\n"
+        "    except ValueError as e:\n"
         "        print(world, 'raised', e)\n"
         "    dist.destroy_process_group()\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert lines[0] == "256 ('data', 'model') (16, 16) 256"
-    # the launcher builds the mesh, then refuses to train unsharded on it
-    assert lines[1].startswith("256 raised training on the production "
-                               "mesh (16, 16): this launcher does not "
-                               "place the train state")
-    assert lines[2] == "512 ('pod', 'data', 'model') (2, 16, 16) 512"
-    assert lines[3].startswith("512 raised training on the production "
-                               "mesh (2, 16, 16)")
-    assert lines[4].startswith("8 raised the production mesh (16, 16) "
+    want = {}
+    for world, mesh_shape in ((256, {"data": 16, "model": 16}),
+                              (512, {"pod": 2, "data": 16, "model": 16})):
+        class Mesh:
+            shape = mesh_shape
+        cfg = treg.get_config("granite_3_8b")
+        rules = dict(tsh.DEFAULT_RULES, **tsh.arch_rules(cfg, 16))
+        pax = tmodel.flat_param_axes(cfg)
+        params = 0
+        for path, shp in tmodel.leaf_shapes(cfg).items():
+            n = 4
+            for dim, e in zip(shp, tsh.spec_for(shp, pax[path], Mesh,
+                                                rules)):
+                axes = (e,) if isinstance(e, str) else (e or ())
+                for a in axes:
+                    dim //= mesh_shape[a]
+                n *= dim
+            params += n
+        want[world] = 3 * params + 2 * 4
+    assert lines[0] == (f"256 ('data', 'model') (16, 16) 256 bfloat16 "
+                        f"True {want[256]}")
+    assert lines[1] == (f"512 ('pod', 'data', 'model') (2, 16, 16) 512 "
+                        f"bfloat16 True {want[512]}")
+    assert lines[2].startswith("8 raised the production mesh (16, 16) "
                                "needs a process group of 256 ranks; the "
                                "default group has 8")
 
@@ -233,7 +276,7 @@ def test_dryrun_extends_the_microbatch_count_exactly(tmp_path):
         "rec = D.lower_cell('granite_3_8b', 'train_4k', 'small', smoke=True,\n"
         "                   global_batch=16, microbatches=8)\n"
         "cfg = D._cut(D.registry.get_config('granite_3_8b'), None, True)\n"
-        "rules = dict(shlib.DEFAULT_RULES, **D.arch_rules(cfg, 2))\n"
+        "rules = dict(shlib.DEFAULT_RULES, **shlib.arch_rules(cfg, 2))\n"
         "shape = dataclasses.replace(SHAPES['train_4k'], global_batch=16)\n"
         "direct = D._count(cfg, shape, D._mesh('small'), rules, 8, 'none')\n"
         "extend = D._extrapolated\n"

@@ -3,7 +3,7 @@
 For every arch, on the single-pod (16, 16) and multi-pod (2, 16, 16)
 meshes (shape stand-ins, as ``tests/test_sharding.py`` builds them), with
 the dry-run's per-arch rules: every leaf of ``param_axes``,
-``cache_axes`` and the dry-run's ``BATCH_AXES`` names the reference's
+``cache_axes`` and the port's ``BATCH_AXES`` names the reference's
 logical axes, and the port's ``spec_for`` equals ``tuple()`` of the
 reference's ``PartitionSpec`` at the reference's shapes
 (``jax.eval_shape``).  The per-device argument bytes of each cell (the
@@ -86,7 +86,7 @@ def _reference_shapes(arch):
 
 def _rules(arch):
     jr = jdry.arch_rules(jreg.get_config(arch), 16)
-    tr = tdry.arch_rules(treg.get_config(arch), 16)
+    tr = tsh.arch_rules(treg.get_config(arch), 16)
     assert tr == jr
     return dict(jsh.DEFAULT_RULES, **jr), dict(tsh.DEFAULT_RULES, **tr)
 
@@ -112,7 +112,7 @@ def _local_bytes(shape, dtype, spec, mesh) -> int:
 
 def test_rules_and_batch_axes_are_the_reference_tables():
     assert tsh.DEFAULT_RULES == jsh.DEFAULT_RULES
-    assert tdry.BATCH_AXES == jdry.BATCH_AXES
+    assert tsh.BATCH_AXES == jdry.BATCH_AXES
     assert tdry.ACT_BUDGET_BYTES == jdry.ACT_BUDGET_BYTES
 
 
@@ -161,7 +161,7 @@ def test_every_leaf_spec_and_argument_bytes_match_reference(arch,
             assert tuple(t.shape) == tuple(sds.shape), (sname, key)
             assert str(t.dtype).split(".")[-1] == str(sds.dtype), (sname, key)
             spec = _spec_pair(sds.shape, jdry.BATCH_AXES[key],
-                              tdry.BATCH_AXES[key], mesh, jrules, trules,
+                              tsh.BATCH_AXES[key], mesh, jrules, trules,
                               f"{sname} {key}")
             batch_bytes += _local_bytes(sds.shape, sds.dtype, spec, mesh)
         if shape.kind == "train":
@@ -188,7 +188,7 @@ def _port_argument_bytes(cfg, shape, mesh, rules) -> int:
         total += _local_bytes(shp, np.float32, spec, mesh)
     params = total
     for key, t in treg.input_specs(cfg, shape).items():
-        spec = tsh.spec_for(tuple(t.shape), tdry.BATCH_AXES[key], mesh,
+        spec = tsh.spec_for(tuple(t.shape), tsh.BATCH_AXES[key], mesh,
                             rules)
         total += _local_bytes(tuple(t.shape),
                               np.dtype(str(t.dtype).split(".")[-1]), spec,
